@@ -1,0 +1,535 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--seed 0] [--n 2097152] [--verbose-build]
+
+Builds the four CUDA kernels from the sources in this checkout, holds each
+against its plain PyTorch version on the card, then drives the port's main
+path through its public entry points at a size a deployment would call
+real: two FEM-like band matrices (``--n`` rows, 24 sub-diagonals at fill
+0.6, about 62 M non-zeros each at the default size) served by one
+``SpmvServingEngine`` and solved by ``cg_solve`` / ``bicgstab``.  Answers
+are checked against a float64 ``scipy.sparse`` product built from the same
+COO data and against the port's own ``segment`` path.
+
+Every phase prints one JSON line.  Before the last line come one JSON
+object ``{"kernels": [...]}`` (per kernel: launches on the main path, error
+against the plain version, time, plain time, bound, library time) and the
+card's name and power limit.  The last line is
+``{"ok": true, "device": {...}}``.  Any failing phase, a missing card or a
+kernel that does not build ends the run with a non-zero exit code; nothing
+falls back to the CPU or to a plain version.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "src"))
+
+HALF_BAND = 24
+FILL = 0.6
+TOL = 1e-5            # of the row's absolute sum: float32 sums in any order
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
+FP32_FLOPS = 67e12             # H100 SXM, float32 outside the tensor cores
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+# ---------------------------------------------------------------------------
+# Data: vectorized band matrices (the package's own generators loop in
+# Python and are kept for parity at test sizes)
+# ---------------------------------------------------------------------------
+
+def band_arrays(n, half_band, fill, seed, symmetric, dyadic=False,
+                empty_rows=None):
+    """Structure and values of a random band matrix with a structurally
+    symmetric pattern: (ia, ja, ad, al, au) with row-major lower slots."""
+    rng = np.random.default_rng(seed)
+    keep = rng.random((n, half_band), dtype=np.float32) < fill
+    # column c of `keep` is the sub-diagonal offset half_band - c, so that
+    # the stored columns of a row ascend with c
+    rows_i = np.arange(n, dtype=np.int64)[:, None]
+    cols_j = rows_i - half_band + np.arange(half_band, dtype=np.int64)[None, :]
+    keep &= cols_j >= 0
+    if empty_rows is not None:
+        keep[empty_rows] = False
+    r, c = np.nonzero(keep)
+    ja = (r - half_band + c).astype(np.int32)
+    ia = np.zeros(n + 1, dtype=np.int32)
+    np.cumsum(keep.sum(axis=1), out=ia[1:])
+    k = ja.shape[0]
+
+    def values():
+        if dyadic:    # exact in bfloat16 too: multiples of 1/4 in [-2, 2]
+            return (rng.integers(-8, 9, size=k) / 4.0).astype(np.float32)
+        return rng.standard_normal(k, dtype=np.float32)
+
+    al = values()
+    au = al if symmetric else values()
+    ad = np.full(n, 2.0 * half_band, dtype=np.float32)
+    return ia, ja, ad, al, au
+
+
+def scipy_csr(n, ia, ja, ad, al, au):
+    """Float64 CSR of the same matrix, independent of the port."""
+    import scipy.sparse as sp
+    ros = np.repeat(np.arange(n, dtype=np.int64), np.diff(ia))
+    ja64 = ja.astype(np.int64)
+    diag = np.arange(n, dtype=np.int64)
+    rows = np.concatenate([ros, ja64, diag])
+    cols = np.concatenate([ja64, ros, diag])
+    vals = np.concatenate([al, au, ad]).astype(np.float64)
+    return sp.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr()
+
+
+def dyadic_vector(rng, shape):
+    return (rng.integers(-8, 9, size=shape) / 8.0).astype(np.float32)
+
+
+def time_ms(fn, reps: int, warmup: int = 1) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def abs_pack(pack):
+    return dataclasses.replace(
+        pack, vals_l=pack.vals_l.abs(),
+        vals_u=pack.vals_l.abs() if pack.num_symmetric else pack.vals_u.abs(),
+        ad=pack.ad.abs())
+
+
+# ---------------------------------------------------------------------------
+# Phases
+# ---------------------------------------------------------------------------
+
+def phase_env():
+    from repro_torch import device as device_mod
+    from repro_torch.kernels import _build
+    card = device_mod.power_limit()
+    check(card is not None, "nvidia-smi did not report the card")
+    emit("env", python=sys.version.split()[0], torch=torch.__version__,
+         cuda=torch.version.cuda, nvcc=_build.nvcc_version(),
+         card=card, sm_count=device_mod.sm_count("cuda"),
+         matmul_tf32=bool(torch.backends.cuda.matmul.allow_tf32))
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "float32 matmuls must run in full precision for the plain versions")
+    return card
+
+
+def phase_build(verbose: bool):
+    from repro_torch.kernels import _build
+    info = _build.build(verbose=verbose)
+    if verbose:
+        for name, log in info["log"].items():
+            print(f"--- nvcc {name}\n{log}", flush=True)
+    emit("build", seconds=round(info["seconds"], 3),
+         compiled=info["compiled"], build_dir=_build.build_dir())
+
+
+def _window_runners(pack, ks):
+    """name -> (kernel wrapper, plain version), for x (n,) and X (n, B)."""
+    from repro_torch.kernels import csrc_spmm as mm
+    from repro_torch.kernels import csrc_spmv as mv
+    k_step = ks * 128
+    return {
+        "blockell_spmv_stream": (
+            lambda x: mv.spmv_windows_stream_cuda(pack, x),
+            lambda x: mv.spmv_windows_stream_plain(pack, x)),
+        "blockell_spmv_onehot": (
+            lambda x: mv.spmv_windows_onehot_cuda(pack, x, k_step),
+            lambda x: mv.spmv_windows_onehot_plain(pack, x, k_step)),
+        "blockell_spmm_stream": (
+            lambda x: mm.spmm_windows_stream_cuda(pack, x),
+            lambda x: mm.spmm_windows_stream_plain(pack, x)),
+        "blockell_spmm_onehot": (
+            lambda x: mm.spmm_windows_onehot_cuda(pack, x, k_step),
+            lambda x: mm.spmm_windows_onehot_plain(pack, x, k_step)),
+    }
+
+
+def _compare(name, kernel, plain, x, exact, abs_plain=None):
+    """Kernel against plain on the card; returns the max abs error."""
+    got = kernel(x)
+    want = plain(x)
+    torch.cuda.synchronize()
+    check(got.shape == want.shape, f"{name}: shape {tuple(got.shape)} != "
+          f"{tuple(want.shape)}")
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+    err = float((got - want).abs().max())
+    if exact:
+        check(torch.equal(got, want),
+              f"{name}: differs from its plain version on dyadic data "
+              f"(max abs err {err})")
+    else:
+        bound = TOL * abs_plain(x.abs()) + 1e-30
+        check(bool(((got - want).abs() <= bound).all()),
+              f"{name}: exceeds {TOL} of the row's absolute sum "
+              f"(max abs err {err})")
+    if "onehot" in name:
+        check(torch.equal(got, kernel(x)),
+              f"{name}: two runs on the same input differ")
+    return err
+
+
+def phase_kernels(seed: int):
+    """K1-K4 against their plain versions at small and mid shapes."""
+    from repro_torch.core import blockell, csrc
+    rng = np.random.default_rng(seed + 1)
+    cases = [
+        # name, n, half_band, fill, symmetric, dyadic, dtype, idx, tm, ks, Bs
+        ("f32_i32_ns_dyadic", 1000, 24, 0.6, False, True,
+         torch.float32, torch.int32, 128, 8, (1, 3, 8, 64)),
+        ("bf16_i16_sym_dyadic", 4133, 24, 0.6, True, True,
+         torch.bfloat16, torch.int16, 128, 8, (1, 3, 8)),
+        ("f32_i16_ns_empty_rows", 2500, 40, 0.5, False, True,
+         torch.float32, torch.int16, 32, 2, (1, 8)),
+        ("f32_i32_sym_general", 3001, 24, 0.6, True, False,
+         torch.float32, torch.int32, 128, 8, (1, 8)),
+        ("f32_i32_ns_general", 3001, 24, 0.6, False, False,
+         torch.float32, torch.int32, 128, 8, (1, 3)),
+        # B=3 leaves a partial column tile (BT=2 for K2) at this window
+        ("wide_band_w4096", 8192, 3900, 0.05, False, True,
+         torch.float32, torch.int32, 128, 8, (1, 3, 8)),
+    ]
+    report = []
+    for (name, n, hb, fill, sym, dyadic, vdt, idt, tm, ks, widths) in cases:
+        empty = slice(700, 1100) if "empty" in name else None
+        ia, ja, ad, al, au = band_arrays(n, hb, fill, seed + len(report), sym,
+                                         dyadic=dyadic, empty_rows=empty)
+        M = csrc.from_assembly(n, ia, ja, ad, al, au)
+        pack = blockell.pack(M, tm=tm, k_step=ks * 128, dtype=vdt,
+                             index_dtype=idt).to("cuda")
+        if "w4096" in name:
+            check(pack.w_pad == 4096, f"{name}: window {pack.w_pad}")
+        runners = _window_runners(pack, ks)
+        abs_runners = _window_runners(abs_pack(pack), ks)
+        errs = {}
+        for width in widths:
+            shape = (n,) if width == 1 else (n, width)
+            x_np = (dyadic_vector(rng, shape) if dyadic
+                    else rng.standard_normal(shape, dtype=np.float32))
+            x = torch.from_numpy(x_np).cuda()
+            for kname, (kernel, plain) in runners.items():
+                if ("spmv" in kname) != (width == 1):
+                    continue
+                err = _compare(f"{name}/{kname}/B{width}", kernel, plain, x,
+                               exact=dyadic, abs_plain=abs_runners[kname][1])
+                errs[f"{kname}/B{width}"] = err
+        report.append({"case": name, "n": n, "nt": pack.nt, "s": pack.s,
+                       "w_pad": pack.w_pad,
+                       "pad_ratio": round(pack.pad_ratio, 4),
+                       "exact": dyadic, "max_err": max(errs.values())})
+    emit("kernels", tolerance=f"exact on dyadic data, else {TOL} of the "
+         "row's absolute sum", cases=report)
+
+
+class Workload:
+    """The serve/solve matrices, their references and their requests."""
+
+    def __init__(self, n: int, seed: int):
+        from repro_torch.core import csrc
+        self.n = n
+        self.arrays = {}
+        self.M = {}
+        self.csr = {}
+        t0 = time.perf_counter()
+        for i, (mid, sym) in enumerate((("fem_ns", False), ("fem_sym", True))):
+            arr = band_arrays(n, HALF_BAND, FILL, seed + 100 + i, sym)
+            self.arrays[mid] = arr
+            self.M[mid] = csrc.from_assembly(n, *arr)
+        self.construct_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for mid, arr in self.arrays.items():
+            self.csr[mid] = scipy_csr(n, *arr)
+        self.scipy_s = time.perf_counter() - t0
+        rng = np.random.default_rng(seed + 7)
+        self.sample = np.sort(rng.choice(n, size=min(n, 4096), replace=False))
+        self.rng = rng
+
+    def check_answers(self, csr, X, Y, segment_op, abs_op, what):
+        """Y (n, B) float32 answers for X: sampled rows against the float64
+        scipy product ``csr @ X``, all rows against the port's segment
+        path.  Both sides round, so the bound is twice ``TOL`` of the
+        row's absolute sum (``abs_op`` applies |A|)."""
+        check(Y.shape == X.shape and Y.dtype == np.float32,
+              f"{what}: shape/dtype {Y.shape} {Y.dtype}")
+        check(bool(np.isfinite(Y).all()), f"{what}: non-finite answer")
+        X_dev = torch.from_numpy(X).cuda()
+        abs_rows = abs_op(X_dev.abs())
+        want = np.asarray(csr[self.sample] @ X.astype(np.float64))
+        err = np.abs(Y[self.sample] - want)
+        bound = 2 * TOL * abs_rows[torch.from_numpy(self.sample).cuda()]
+        check(bool((err <= bound.cpu().numpy().astype(np.float64)
+                    + 1e-30).all()),
+              f"{what}: sampled rows differ from the float64 reference "
+              f"(max {err.max()})")
+        dev = (torch.from_numpy(Y).cuda() - segment_op(X_dev)).abs()
+        check(bool((dev <= 2 * TOL * abs_rows + 1e-30).all()),
+              f"{what}: differs from the segment path "
+              f"(max {float(dev.max())})")
+        return float(err.max()), float(dev.max())
+
+
+def phase_serve(work: Workload):
+    from repro_torch import obs
+    from repro_torch.core import csrc
+    from repro_torch.core.paths import BUILD_COUNTS
+    from repro_torch.core.plan import ExecutionPlan
+    from repro_torch.kernels.ops import SpmvOperator
+    from repro_torch.serve import SpmvServingEngine
+
+    stream_plan = ExecutionPlan(path="kernel", variant="stream")
+    eng = SpmvServingEngine()          # default device: the card
+    t0 = time.perf_counter()
+    plan_ns = eng.register("fem_ns", work.M["fem_ns"])
+    plan_sym = eng.register("fem_sym", work.M["fem_sym"], plan=stream_plan)
+    register_s = time.perf_counter() - t0
+    spans = {}
+    for rec in obs.trace():        # pack and partition, summed over both
+        if rec["name"].startswith("schedule."):
+            spans[rec["name"]] = round(
+                spans.get(rec["name"], 0.0) + rec["duration_s"], 3)
+    check(plan_ns.path == "kernel" and plan_ns.variant == "onehot",
+          f"default plan is {plan_ns.key()}, expected kernel/onehot")
+    check(plan_sym.key() == stream_plan.key(), "explicit plan not honoured")
+    segment = {mid: SpmvOperator(work.M[mid], path="segment")
+               for mid in work.M}
+    segment_abs = {}
+    for mid, (ia, ja, ad, al, au) in work.arrays.items():
+        segment_abs[mid] = SpmvOperator(
+            csrc.from_assembly(work.n, ia, ja, np.abs(ad), np.abs(al),
+                               np.abs(au)), path="segment")
+
+    n = work.n
+    # 24 requests over both matrices, in two waves: a wave of 11 + 11 is
+    # answered by one coalesced SpMM per matrix, a wave of 1 + 1 by one SpMV
+    waves = []
+    for per_matrix in (11, 1):
+        sent = {}
+        for mid in ("fem_ns", "fem_sym"):
+            for _ in range(per_matrix):
+                x = work.rng.standard_normal(n, dtype=np.float32)
+                sent[eng.submit(mid, x)] = (mid, x)
+        t_tick = time.perf_counter()
+        out = eng.run_until_drained()
+        tick_s = time.perf_counter() - t_tick
+        check(set(out) == set(sent), "not every request was answered")
+        check(not eng.queue, "queue not drained")
+        execute_s = {}
+        for mid, plan in (("fem_ns", plan_ns), ("fem_sym", plan_sym)):
+            uids = [u for u, (m, _) in sent.items() if m == mid]
+            for u in uids:
+                r = out[u]
+                check(r.batched == per_matrix and r.plan_key == plan.key()
+                      and r.executor == "local" and r.matrix_id == mid
+                      and r.path == "kernel" and r.strategy == "local",
+                      f"result metadata wrong: {r.meta()}")
+                check(r.timings["execute_s"] > 0, "no execute_s timing")
+            X = np.stack([sent[u][1] for u in uids], axis=1)
+            Y = np.stack([np.asarray(out[u]) for u in uids], axis=1)
+            errs = work.check_answers(work.csr[mid], X, Y, segment[mid],
+                                      segment_abs[mid],
+                                      f"serve {mid} B={per_matrix}")
+            execute_s[mid] = {"execute_s": out[uids[0]].timings["execute_s"],
+                              "err_vs_float64": errs[0],
+                              "err_vs_segment": errs[1]}
+        waves.append({"requests_per_matrix": per_matrix,
+                      "tick_s": round(tick_s, 4), **execute_s})
+
+    # value refresh: same structure, new values -> no pack, no partition
+    ia, ja, ad, al, _ = work.arrays["fem_sym"]
+    M_t = csrc.from_assembly(n, ia, ja, 0.5 * ad, 0.5 * al, 0.5 * al)
+    csr_t = (0.5 * work.csr["fem_sym"]).tocsr()
+    before = dict(BUILD_COUNTS.items())
+    t0 = time.perf_counter()
+    eng.update_values("fem_sym", M_t)
+    refresh_s = time.perf_counter() - t0
+    x = work.rng.standard_normal(n, dtype=np.float32)
+    uid = eng.submit("fem_sym", x)
+    out = eng.run_until_drained()
+    delta = {k: v - before.get(k, 0) for k, v in BUILD_COUNTS.items()}
+    check(delta.get("value_refresh") == 1 and not delta.get("pack")
+          and not delta.get("partition"),
+          f"value refresh rebuilt structure: {delta}")
+    seg_t = SpmvOperator(M_t, path="segment")
+    work.check_answers(csr_t, x[:, None], np.asarray(out[uid])[:, None],
+                       seg_t, segment_abs["fem_sym"],
+                       "serve fem_sym after refresh")
+    # back to the registered values for the solve phase
+    eng.update_values("fem_sym", work.M["fem_sym"])
+
+    packs = {mid: eng.executor(mid).op.pack for mid in work.M}
+    emit("serve", n=n, requests=24,
+         nnz={mid: int(M.nnz) for mid, M in work.M.items()},
+         construct_s=round(work.construct_s, 3),
+         scipy_reference_s=round(work.scipy_s, 3),
+         register_s=round(register_s, 3), register_spans_s=spans,
+         refresh_s=round(refresh_s, 3),
+         plans={"fem_ns": plan_ns.key(), "fem_sym": plan_sym.key()},
+         pack={mid: {"nt": p.nt, "s": p.s, "w_pad": p.w_pad,
+                     "pad_ratio": round(p.pad_ratio, 4),
+                     "streamed_bytes": p.streamed_bytes()}
+               for mid, p in packs.items()},
+         build_counts=dict(BUILD_COUNTS.items()), waves=waves)
+    return eng
+
+
+def phase_solve(work: Workload, eng):
+    from repro_torch.core import solvers
+    from repro_torch.core.plan import ExecutionPlan
+
+    n = work.n
+    b = work.rng.standard_normal((n, 8), dtype=np.float32)
+    t0 = time.perf_counter()
+    res, op = solvers.cg_solve(
+        work.M["fem_sym"], torch.from_numpy(b), cache=eng.cache,
+        plan=ExecutionPlan(path="kernel", variant="stream"), tol=1e-6)
+    torch.cuda.synchronize()
+    cg_s = time.perf_counter() - t0
+    check(res.converged, f"cg did not converge: {res.residual}")
+    x = res.x.cpu().numpy().astype(np.float64)
+    r = b - work.csr["fem_sym"] @ x
+    cg_true = float(np.max(np.linalg.norm(r, axis=0)
+                           / np.linalg.norm(b, axis=0)))
+    check(cg_true <= 1e-5, f"cg true residual {cg_true}")
+
+    b1 = work.rng.standard_normal(n, dtype=np.float32)
+    op_ns = eng.executor("fem_ns").op           # default plan: one-hot
+    t0 = time.perf_counter()
+    res2 = solvers.bicgstab(op_ns, torch.from_numpy(b1).cuda(), tol=1e-6)
+    torch.cuda.synchronize()
+    bi_s = time.perf_counter() - t0
+    check(res2.converged, f"bicgstab did not converge: {res2.residual}")
+    x2 = res2.x.cpu().numpy().astype(np.float64)
+    r2 = b1 - work.csr["fem_ns"] @ x2
+    bi_true = float(np.linalg.norm(r2) / np.linalg.norm(b1))
+    check(bi_true <= 1e-5, f"bicgstab true residual {bi_true}")
+    emit("solve", cg={"nrhs": 8, "plan": op.plan.key(), "iters": res.iters,
+                      "residual": res.residual, "true_residual": cg_true,
+                      "seconds": round(cg_s, 4)},
+         bicgstab={"plan": op_ns.plan.key(), "iters": res2.iters,
+                   "residual": res2.residual, "true_residual": bi_true,
+                   "seconds": round(bi_s, 4)})
+
+
+def phase_path_kernels(work: Workload, eng, launches):
+    """Each kernel at the shapes the main path gave it: against its plain
+    version, timed, beside its bound and one library call."""
+    from repro_torch.kernels import _build
+    n = work.n
+    ks = 8
+    rows = []
+    x1 = torch.from_numpy(work.rng.standard_normal(n, dtype=np.float32)).cuda()
+    x11 = torch.from_numpy(
+        work.rng.standard_normal((n, 11), dtype=np.float32)).cuda()
+    for kname, mid, x in (("blockell_spmv_stream", "fem_sym", x1),
+                          ("blockell_spmm_stream", "fem_sym", x11),
+                          ("blockell_spmv_onehot", "fem_ns", x1),
+                          ("blockell_spmm_onehot", "fem_ns", x11)):
+        pack = eng.executor(mid).op.pack
+        kernel, plain = _window_runners(pack, ks)[kname]
+        abs_plain = _window_runners(abs_pack(pack), ks)[kname][1]
+        err = _compare(f"path/{kname}", kernel, plain, x, exact=False,
+                       abs_plain=abs_plain)
+        nrhs = 1 if x.ndim == 1 else x.shape[1]
+        csr = work.csr[mid]
+        lib = torch.sparse_csr_tensor(
+            torch.from_numpy(csr.indptr.astype(np.int64)),
+            torch.from_numpy(csr.indices.astype(np.int64)),
+            torch.from_numpy(csr.data.astype(np.float32)),
+            size=(n, n)).cuda()
+        ms = time_ms(lambda: kernel(x), reps=10)
+        plain_ms = time_ms(lambda: plain(x), reps=2)
+        library_ms = time_ms(lambda: lib @ x, reps=5)
+        del lib
+        bytes_moved = pack.streamed_bytes(nrhs)
+        flops = (2 * work.M[mid].nnz - n) * nrhs
+        t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / FP32_FLOPS * 1e3
+        k = _build.KERNELS[kname]
+        rows.append({
+            "name": kname, "route": "cuda", "source": k.repo_source,
+            "replaces": k.replaces, "launches": launches[kname],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms,
+            "shape": {"matrix": mid, "nrhs": nrhs, "nt": pack.nt,
+                      "s": pack.s, "w_pad": pack.w_pad},
+            "bytes": bytes_moved, "flops": flops})
+        torch.cuda.empty_cache()
+    return rows
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--n", type=int, default=2_097_152,
+                    help="rows of the serve/solve matrices")
+    ap.add_argument("--verbose-build", action="store_true",
+                    help="print nvcc's register / shared-memory report")
+    args = ap.parse_args()
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs one "
+             "NVIDIA GPU")
+    from repro_torch import device as device_mod
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import csrc_spmm, csrc_spmv  # noqa: F401  (register)
+
+    torch.manual_seed(args.seed)
+    card = phase_env()
+    phase_build(args.verbose_build)
+    phase_kernels(args.seed)
+
+    t0 = time.perf_counter()
+    work = Workload(args.n, args.seed)
+    _build.reset_launch_counts()       # the main path starts here ...
+    eng = phase_serve(work)
+    phase_solve(work, eng)
+    launches = _build.launch_counts()  # ... and ends here
+    for name, count in launches.items():
+        check(count > 0, f"kernel {name} was never launched on the main path")
+    emit("main_path", launches=launches,
+         seconds=round(time.perf_counter() - t0, 3))
+
+    rows = phase_path_kernels(work, eng, launches)
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": device_mod.describe("cuda:0")}),
+          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,59 @@
+"""Build this package's objects from the JAX package's, handed over as numpy
+arrays and plain Python values.
+
+The caller does the ``np.asarray`` on the other package's arrays: nothing
+here ever sees (or imports) a foreign array type.  bfloat16 streams cross
+as widened float32 plus the dtype's name, the way the schedule npz layer
+stores them.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from repro_torch.core.blockell import BlockEll
+from repro_torch.core.csrc import CSRC, _t
+from repro_torch.core.plan import ExecutionPlan
+
+_VALUE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _tensor(a, dtype=None) -> torch.Tensor:
+    return _t(np.asarray(a, dtype=dtype))
+
+
+def csrc_from_arrays(*, n: int, m: int, ad, ia, ja, al, au, iar, jar, ar,
+                     numerically_symmetric: bool) -> CSRC:
+    """A :class:`CSRC` from the eight arrays of another container."""
+    return CSRC(n=int(n), m=int(m), ad=_tensor(ad), ia=_tensor(ia),
+                ja=_tensor(ja), al=_tensor(al), au=_tensor(au),
+                iar=_tensor(iar), jar=_tensor(jar), ar=_tensor(ar),
+                numerically_symmetric=bool(numerically_symmetric))
+
+
+def blockell_from_arrays(*, n: int, tm: int, nt: int, w_pad: int, s: int,
+                         vals_l, vals_u, col_local, row_in_win, ad,
+                         num_symmetric: bool, pad_ratio: float,
+                         value_dtype: str = "float32") -> BlockEll:
+    """A :class:`BlockEll` from a foreign pack.  Value streams arrive as
+    float32 arrays and are narrowed to ``value_dtype`` ('float32' or
+    'bfloat16'); index streams keep the integer dtype they arrive in."""
+    vdt = _VALUE_DTYPES[value_dtype]
+
+    def values(a):
+        return _tensor(a, np.float32).to(vdt)
+
+    vl = values(vals_l)
+    return BlockEll(
+        n=int(n), tm=int(tm), nt=int(nt), w_pad=int(w_pad), s=int(s),
+        vals_l=vl, vals_u=vl if num_symmetric else values(vals_u),
+        col_local=_tensor(col_local), row_in_win=_tensor(row_in_win),
+        ad=values(ad), num_symmetric=bool(num_symmetric),
+        pad_ratio=float(pad_ratio))
+
+
+def plan_from_dict(d: Dict) -> ExecutionPlan:
+    """An :class:`ExecutionPlan` from another plan's ``to_dict()``."""
+    return ExecutionPlan.from_dict(dict(d))

@@ -1,0 +1,398 @@
+"""The KernelPath registry: one registration per execution path.
+
+One record per path collects everything the plan / schedule / tuner /
+operator stack needs to know about it:
+
+  name              the ``ExecutionPlan.path`` value
+  feasible          can this path execute a matrix with these shape stats
+                    at all
+  candidates        tuner candidate enumerator: the plans worth measuring
+                    for a matrix with the given statistics
+  artifact_fields   the plan fields the schedule artifact depends on
+                    (plans differing only elsewhere share one artifact)
+  build_artifact    packer -> SpmvSchedule field dict
+  save_artifact     npz serialization of those fields (meta, arrays)
+  load_artifact     the inverse; versioned via schedule.SCHEDULE_VERSION
+  make_spmv         executor factory, x of shape (m,)
+  make_spmm         executor factory, X of shape (m, r)
+  refresh_values    same-structure value-stream refresh (FEM time
+                    stepping; schedule.refresh_schedule) — optional
+
+``register_path`` wires the name into ``plan.PATHS`` (so ``ExecutionPlan``
+validation accepts it) and makes the path visible to the operator, the
+schedule layer and the tuner.  Registered here: ``segment`` and
+``kernel``.  The JAX package's ``colorful``, ``flat`` and ``nnzsplit``
+entries (and the ``ShardSupport`` record of the mesh strategies) are not
+in this package yet; a plan naming one of them is refused with
+``ValueError`` by the operator.
+
+The executor factories receive the matrix and the schedule **already on
+the executor's device** (``SpmvOperator._bind`` moves them once) and
+return callables on tensors of that device.  Executors live in
+``repro_torch.kernels`` — imported lazily inside the factory functions so
+the core package keeps its import order (kernels imports core, never the
+reverse at module load).
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .plan import ExecutionPlan, kernel_window, register_path_name
+
+
+# Build probe: how many times each expensive structure precomputation ran.
+# Tests (and ops dashboards) diff these counters around a cache-hit path to
+# assert that no re-pack / re-partition happened.  (Re-exported as
+# ``schedule.BUILD_COUNTS`` — same object.)  A thin dict-like view over the
+# ``build_total{kind=...}`` counter family in ``repro_torch.obs.REGISTRY``.
+class BuildCounts:
+    """Counter-compatible view over the ``build_total`` metric family."""
+
+    FAMILY = "build_total"
+    _HELP = ("expensive structure precomputations (pack / partition / "
+             "coloring / shard layouts) that actually ran")
+
+    def _family(self):
+        from repro_torch import obs
+        return obs.REGISTRY.family(self.FAMILY, "counter", ("kind",),
+                                   help=self._HELP)
+
+    def inc(self, kind: str, v: int = 1):
+        """Record ``v`` builds of this kind.  Counts even when metrics
+        are disabled: the probe is a correctness assertion, not
+        telemetry."""
+        self._family().labels(kind=kind).inc_always(v)
+
+    def __getitem__(self, kind: str) -> int:
+        child = self._family().children.get((str(kind),))
+        return 0 if child is None else int(child.value)
+
+    def __setitem__(self, kind: str, v):
+        import warnings
+        warnings.warn(
+            "direct BUILD_COUNTS mutation is deprecated; use "
+            "BUILD_COUNTS.inc(kind) or obs.counter('build_total', ...)",
+            DeprecationWarning, stacklevel=2)
+        self._family().labels(kind=kind).set_always(v)
+
+    def get(self, kind: str, default: int = 0) -> int:
+        v = self[kind]
+        return v if (str(kind),) in self._family().children else default
+
+    def keys(self):
+        return [k for (k,) in self._family().children]
+
+    def values(self):
+        return [int(c.value) for c in self._family().children.values()]
+
+    def items(self):
+        return [(k, int(c.value))
+                for (k,), c in self._family().children.items()]
+
+    def __iter__(self):
+        return iter(self.keys())
+
+    def __len__(self) -> int:
+        return len(self._family().children)
+
+    def __contains__(self, kind) -> bool:
+        return (str(kind),) in self._family().children
+
+    def __repr__(self) -> str:
+        return f"BuildCounts({dict(self.items())!r})"
+
+
+BUILD_COUNTS = BuildCounts()
+
+
+@dataclasses.dataclass(frozen=True)
+class CandidateSpace:
+    """The degrees of freedom the tuner's enumeration sweeps, plus the
+    analytically-chosen distributed fields every candidate inherits."""
+    tms: Tuple[int, ...] = (32, 128)
+    k_steps_sublanes: Tuple[int, ...] = (8,)
+    w_cap: int = 4096
+    colorful_max_n: int = 2048
+    partition: str = "nnz"
+    accumulation: str = "allreduce"
+    # index-stream dtypes the windowed enumerators propose; 'int16' is
+    # emitted only where the pack supports it (window fits in 16 bits)
+    index_dtypes: Tuple[str, ...] = ("int32", "int16")
+    # value-stream dtypes the windowed enumerators propose; 'bfloat16' is
+    # emitted only for numerically-symmetric matrices and must additionally
+    # pass the tuner's accuracy check before it can win
+    value_dtypes: Tuple[str, ...] = ("float32", "bfloat16")
+    nnzsplit_ks: Tuple[int, ...] = (2, 8)
+    # kernel body variants the windowed enumerators propose; both share one
+    # pack artifact, so proposing both costs no extra schedule builds
+    variants: Tuple[str, ...] = ("stream", "onehot")
+    colorings: Tuple[str, ...] = ("greedy", "race")
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelPath:
+    """Everything the plan/schedule/tuner/operator stack needs to know
+    about one execution path."""
+    name: str
+    feasible: Callable[..., bool]
+    candidates: Callable[..., list]
+    artifact_fields: Callable[[ExecutionPlan], tuple]
+    build_artifact: Callable[..., dict]
+    save_artifact: Callable[..., Tuple[dict, dict]]
+    load_artifact: Callable[..., dict]
+    make_spmv: Callable[..., Callable]
+    make_spmm: Callable[..., Callable]
+    # Same-structure value refresh (M, schedule) -> updated artifact field
+    # dict (schedule.refresh_schedule).  None means the path's artifact is
+    # purely structural (or absent) and is reused as-is — the executors
+    # read values from the matrix directly ('segment').
+    refresh_values: Optional[Callable[..., dict]] = None
+
+
+_REGISTRY: Dict[str, KernelPath] = {}
+
+
+def register_path(entry: KernelPath) -> KernelPath:
+    """Register a path.  The name becomes a valid ``ExecutionPlan.path``,
+    the candidates join every tuner enumeration, the artifact build function is
+    called by ``schedule.build_schedule``, and the executors by
+    ``SpmvOperator``."""
+    _REGISTRY[entry.name] = entry
+    register_path_name(entry.name)
+    return entry
+
+
+def get_path(name: str) -> KernelPath:
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise KeyError(f"no kernel path {name!r} registered "
+                       f"(known: {sorted(_REGISTRY)})") from None
+
+
+def registered_paths() -> Tuple[KernelPath, ...]:
+    return tuple(_REGISTRY.values())
+
+
+# ---------------------------------------------------------------------------
+# Shared helpers
+# ---------------------------------------------------------------------------
+
+def _always_feasible(plan, *, n, m, bandwidth) -> bool:
+    return True
+
+
+def _windowed_feasible(plan, *, n, m, bandwidth) -> bool:
+    """Square matrix whose padded window fits under the plan's cap — the
+    bandwidth gate of the windowed kernels.  An int16 index stream
+    additionally needs the window (and its padding sentinel, index == W)
+    to fit in 16 bits."""
+    if n != m:
+        return False
+    w = kernel_window(plan.tm, bandwidth)
+    if w > plan.w_cap:
+        return False
+    return plan.index_dtype != "int16" or w + 1 <= 32767
+
+
+def _no_artifact(M, plan, coloring=None) -> dict:
+    return {}
+
+
+def _save_nothing(sched):
+    return {}, {}
+
+
+def _load_nothing(meta, z) -> dict:
+    return {}
+
+
+def _empty_fields(plan) -> tuple:
+    return ()
+
+
+def _windowed_fields(plan) -> tuple:
+    return (plan.tm, plan.w_cap, plan.k_step_sublanes, plan.index_dtype,
+            plan.value_dtype)
+
+
+def _windowed_candidates(path, stats, space):
+    out = []
+    if stats.n != stats.m:
+        return out
+    for tm in space.tms:
+        w = kernel_window(tm, stats.bandwidth)
+        if w > space.w_cap:
+            continue
+        for ks in space.k_steps_sublanes:
+            for idt in space.index_dtypes:
+                if idt == "int16" and w + 1 > 32767:
+                    continue        # window overflows 16-bit offsets
+                for vdt in space.value_dtypes:
+                    if (vdt == "bfloat16"
+                            and not stats.numerically_symmetric):
+                        # bf16 value streams are proposed only for the
+                        # numerically-symmetric (well-conditioned) classes
+                        continue
+                    for var in space.variants:
+                        out.append(ExecutionPlan(
+                            path=path, tm=tm, w_cap=space.w_cap,
+                            k_step_sublanes=ks, index_dtype=idt,
+                            value_dtype=vdt, variant=var,
+                            partition=space.partition,
+                            accumulation=space.accumulation))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 'segment' — index_add_ torch path (any matrix, incl. the rectangular tail)
+# ---------------------------------------------------------------------------
+
+def _segment_candidates(stats, space):
+    return [ExecutionPlan(path="segment", w_cap=space.w_cap,
+                          partition=space.partition,
+                          accumulation=space.accumulation)]
+
+
+def _segment_make_spmv(M, schedule, plan, *, coloring=None):
+    from repro_torch.kernels import ref
+    return functools.partial(ref.csrc_spmv, M, row_idx=ref.row_index(M))
+
+
+def _segment_make_spmm(M, schedule, plan, *, coloring=None):
+    from repro_torch.kernels import ref
+    return functools.partial(ref.csrc_spmm, M, row_idx=ref.row_index(M))
+
+
+register_path(KernelPath(
+    name="segment",
+    feasible=_always_feasible,
+    candidates=_segment_candidates,
+    artifact_fields=_empty_fields,
+    build_artifact=_no_artifact,
+    save_artifact=_save_nothing,
+    load_artifact=_load_nothing,
+    make_spmv=_segment_make_spmv,
+    make_spmm=_segment_make_spmm,
+))
+
+
+# ---------------------------------------------------------------------------
+# 'kernel' — rectangular-grid block-ELL CUDA kernels (banded matrices)
+# ---------------------------------------------------------------------------
+
+def _index_dtype_of(plan):
+    return torch.int16 if plan.index_dtype == "int16" else torch.int32
+
+
+def _value_dtype_of(plan):
+    return (torch.bfloat16 if plan.value_dtype == "bfloat16"
+            else torch.float32)
+
+
+def _kernel_build(M, plan, coloring=None) -> dict:
+    from . import blockell
+    if not M.is_square:
+        raise ValueError(
+            "kernel path packs the square CSRC part only; "
+            "use 'segment' for rectangular matrices")
+    BUILD_COUNTS.inc("pack")
+    return {"pack": blockell.pack(M, tm=plan.tm, k_step=plan.k_step,
+                                  w_cap=plan.w_cap,
+                                  dtype=_value_dtype_of(plan),
+                                  index_dtype=_index_dtype_of(plan))}
+
+
+def _kernel_save(sched):
+    pk = sched.pack
+
+    def f32(a):
+        return a.detach().to(device="cpu", dtype=torch.float32).numpy()
+
+    # value streams are persisted as float32 (bf16 -> f32 widening is
+    # lossless; numpy npz has no native bfloat16) and re-narrowed on load
+    # to the dtype recorded in the meta
+    meta = {"pack": {"n": pk.n, "tm": pk.tm, "nt": pk.nt,
+                     "w_pad": pk.w_pad, "s": pk.s,
+                     "num_symmetric": bool(pk.num_symmetric),
+                     "value_dtype": str(pk.vals_l.dtype).replace("torch.", ""),
+                     "pad_ratio": pk.pad_ratio}}
+    arrays = dict(
+        pack_vals_l=f32(pk.vals_l),
+        pack_vals_u=f32(pk.vals_u),
+        pack_col_local=pk.col_local.detach().cpu().numpy(),
+        pack_row_in_win=pk.row_in_win.detach().cpu().numpy(),
+        pack_ad=f32(pk.ad),
+    )
+    return meta, arrays
+
+
+def _kernel_load(meta, z) -> dict:
+    from .blockell import BlockEll
+    pm = meta["pack"]
+    vdt = {"float32": torch.float32,
+           "bfloat16": torch.bfloat16}[pm.get("value_dtype", "float32")]
+
+    def values(name):
+        return torch.from_numpy(
+            np.ascontiguousarray(z[name], dtype=np.float32)).to(vdt)
+
+    num_symmetric = bool(pm["num_symmetric"])
+    vals_l = values("pack_vals_l")
+    return {"pack": BlockEll(
+        n=pm["n"], tm=pm["tm"], nt=pm["nt"], w_pad=pm["w_pad"], s=pm["s"],
+        vals_l=vals_l,
+        vals_u=vals_l if num_symmetric else values("pack_vals_u"),
+        col_local=torch.from_numpy(np.ascontiguousarray(z["pack_col_local"])),
+        row_in_win=torch.from_numpy(
+            np.ascontiguousarray(z["pack_row_in_win"])),
+        ad=values("pack_ad"),
+        num_symmetric=num_symmetric,
+        pad_ratio=float(pm["pad_ratio"]),
+    )}
+
+
+def _kernel_refresh(M, sched) -> dict:
+    from . import blockell
+    return {"pack": blockell.refresh_values(sched.pack, M)}
+
+
+def _kernel_make_spmv(M, schedule, plan, *, coloring=None):
+    if plan.variant == "stream":
+        from repro_torch.kernels import csrc_spmv_stream as stream_mod
+        return functools.partial(stream_mod.blockell_spmv_stream,
+                                 schedule.pack,
+                                 k_step_sublanes=plan.k_step_sublanes)
+    from repro_torch.kernels import csrc_spmv as kernel_mod
+    return functools.partial(kernel_mod.blockell_spmv, schedule.pack,
+                             k_step_sublanes=plan.k_step_sublanes)
+
+
+def _kernel_make_spmm(M, schedule, plan, *, coloring=None):
+    if plan.variant == "stream":
+        from repro_torch.kernels import csrc_spmv_stream as stream_mod
+        return functools.partial(stream_mod.blockell_spmm_stream,
+                                 schedule.pack,
+                                 k_step_sublanes=plan.k_step_sublanes)
+    from repro_torch.kernels import csrc_spmm as kernel_mm_mod
+    return functools.partial(kernel_mm_mod.blockell_spmm, schedule.pack,
+                             k_step_sublanes=plan.k_step_sublanes)
+
+
+register_path(KernelPath(
+    name="kernel",
+    feasible=_windowed_feasible,
+    candidates=functools.partial(_windowed_candidates, "kernel"),
+    artifact_fields=_windowed_fields,
+    build_artifact=_kernel_build,
+    save_artifact=_kernel_save,
+    load_artifact=_kernel_load,
+    make_spmv=_kernel_make_spmv,
+    make_spmm=_kernel_make_spmm,
+    refresh_values=_kernel_refresh,
+))

@@ -1,0 +1,80 @@
+"""The CUDA kernels against their plain versions, on the card.
+
+These tests need an NVIDIA GPU and ``nvcc`` and skip elsewhere (the check
+is made inside the fixture, never at import).  Run them on the card with
+
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
+
+``chip_smoke.py`` makes the same comparisons at more shapes and at the
+main path's size; this file is the pytest form of the core of them.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import blockell, csrc
+from repro_torch.core.plan import ExecutionPlan
+from repro_torch.kernels import _build
+from repro_torch.kernels import csrc_spmm as mm
+from repro_torch.kernels import csrc_spmv as mv
+from repro_torch.kernels.ops import SpmvOperator
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _dyadic_matrix(n=1000, half_band=24, symmetric=False, seed=0):
+    rng = np.random.default_rng(seed)
+    M = csrc.fem_band(n, half_band, seed=seed, numeric_symmetric=symmetric)
+
+    def q(a):
+        return torch.round(a * 4.0) / 4.0
+    import dataclasses
+    return dataclasses.replace(M, ad=q(M.ad), al=q(M.al), au=q(M.au)), rng
+
+
+@pytest.mark.parametrize("vdt,idt", [(torch.float32, torch.int32),
+                                     (torch.bfloat16, torch.int16)])
+@pytest.mark.parametrize("symmetric", [False, True])
+def test_kernels_equal_plain_versions_on_dyadic_data(card, vdt, idt,
+                                                     symmetric):
+    M, rng = _dyadic_matrix(symmetric=symmetric)
+    pack = blockell.pack(M, dtype=vdt, index_dtype=idt).to(card)
+    x = torch.from_numpy((rng.integers(-8, 9, M.n) / 8).astype(np.float32)
+                         ).to(card)
+    X = torch.from_numpy((rng.integers(-8, 9, (M.n, 5)) / 8
+                          ).astype(np.float32)).to(card)
+    before = _build.launch_counts()
+    assert torch.equal(mv.spmv_windows_stream_cuda(pack, x),
+                       mv.spmv_windows_stream_plain(pack, x))
+    assert torch.equal(mv.spmv_windows_onehot_cuda(pack, x, 1024),
+                       mv.spmv_windows_onehot_plain(pack, x, 1024))
+    assert torch.equal(mm.spmm_windows_stream_cuda(pack, X),
+                       mm.spmm_windows_stream_plain(pack, X))
+    assert torch.equal(mm.spmm_windows_onehot_cuda(pack, X, 1024),
+                       mm.spmm_windows_onehot_plain(pack, X, 1024))
+    after = _build.launch_counts()
+    assert all(after[k] == before[k] + 1 for k in after)
+
+
+def test_operator_on_the_card_launches_kernels_and_matches_segment(card):
+    M, rng = _dyadic_matrix(n=3000)
+    x = torch.from_numpy((rng.integers(-8, 9, (M.n, 3)) / 8
+                          ).astype(np.float32))
+    want = SpmvOperator(M, path="segment")(x.cuda())
+    for variant, kernel in (("stream", "blockell_spmm_stream"),
+                            ("onehot", "blockell_spmm_onehot")):
+        op = SpmvOperator.from_plan(M, ExecutionPlan(path="kernel",
+                                                     variant=variant))
+        assert op.device.type == "cuda"
+        before = _build.launch_counts()[kernel]
+        assert torch.equal(op(x.cuda()), want)
+        assert _build.launch_counts()[kernel] == before + 1
+        with pytest.raises(ValueError, match="bound to"):
+            op(x)                      # a CPU tensor is refused, not served
