@@ -3,19 +3,27 @@
 
     python3 chip_smoke.py [--seed 0] [--n 2097152] [--verbose-build]
 
-Builds the four CUDA kernels from the sources in this checkout, holds each
-against its plain PyTorch version on the card, then drives the port's main
-path through its public entry points at a size a deployment would call
-real: two FEM-like band matrices (``--n`` rows, 24 sub-diagonals at fill
-0.6, about 62 M non-zeros each at the default size) served by one
-``SpmvServingEngine`` and solved by ``cg_solve`` / ``bicgstab``.  Answers
-are checked against a float64 ``scipy.sparse`` product built from the same
-COO data and against the port's own ``segment`` path.
+Builds the eight CUDA kernels from the sources in this checkout, holds each
+against its plain PyTorch version on the card, then drives two of the
+port's paths through its public entry points at a size a deployment would
+call real, one after the other:
+
+  kernel  two FEM-like band matrices (``--n`` rows, 24 sub-diagonals at
+          fill 0.6, about 62 M non-zeros each at the default size) on the
+          rectangular block-ELL grid (K1-K4);
+  flat    two skewed FEM-like matrices (``--n`` rows, a dense half-band of
+          512 on the first 6 % of rows and of 3 on the rest, about 142 M
+          non-zeros each) on the flat grid (K5-K8).
+
+Each path's two matrices are served by one ``SpmvServingEngine`` and solved
+by ``cg_solve`` / ``bicgstab``.  Answers are checked against a float64
+``scipy.sparse`` product built from the same COO data and against the
+port's own ``segment`` path.
 
 Every phase prints one JSON line.  Before the last line come one JSON
-object ``{"kernels": [...]}`` (per kernel: launches on the main path, error
-against the plain version, time, plain time, bound, library time) and the
-card's name and power limit.  The last line is
+object ``{"kernels": [...]}`` (per kernel: launches on its path's main run,
+error against the plain version, time, plain time, bound, library time)
+and the card's name and power limit.  The last line is
 ``{"ok": true, "device": {...}}``.  Any failing phase, a missing card or a
 kernel that does not build ends the run with a non-zero exit code; nothing
 falls back to the CPU or to a plain version.
@@ -24,6 +32,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import sys
@@ -37,6 +46,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 HALF_BAND = 24
 FILL = 0.6
+SKEW_WIDE = 512       # half-band of the wide rows of the skewed matrices
+SKEW_NARROW = 3       # half-band of the other rows
+SKEW_WIDE_FRAC = 0.06
 TOL = 1e-5            # of the row's absolute sum: float32 sums in any order
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
 FP32_FLOPS = 67e12             # H100 SXM, float32 outside the tensor cores
@@ -91,6 +103,59 @@ def band_arrays(n, half_band, fill, seed, symmetric, dyadic=False,
     return ia, ja, ad, al, au
 
 
+def skew_arrays(n, wide, narrow, seed, symmetric, fill=1.0, dyadic=False,
+                empty_rows=None):
+    """A matrix of the shape of ``csrc.skewed_band``: rows below
+    ``SKEW_WIDE_FRAC·n`` hold the band of half-width ``wide``, the others
+    of half-width ``narrow``, dense (``fill`` keeps a random share of the
+    wide rows' slots), diagonal 2·wide.  Returns (ia, ja, ad, al, au) with
+    row-major lower slots."""
+    rng = np.random.default_rng(seed)
+    rows_i = np.arange(n, dtype=np.int64)
+    n_wide = max(1, int(round(SKEW_WIDE_FRAC * n)))
+    lo = np.maximum(0, rows_i - np.where(rows_i < n_wide, wide, narrow))
+    count = rows_i - lo
+    if empty_rows is not None:
+        count[empty_rows] = 0
+    ros = np.repeat(rows_i, count)
+    ia_full = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(count, out=ia_full[1:])
+    ja = lo[ros] + np.arange(ros.shape[0], dtype=np.int64) - ia_full[ros]
+    if fill < 1.0:
+        keep = (ros >= n_wide) | (rng.random(ros.shape[0]) < fill)
+        ros, ja = ros[keep], ja[keep]
+    ia = np.zeros(n + 1, dtype=np.int32)
+    np.cumsum(np.bincount(ros, minlength=n), out=ia[1:])
+    k = ja.shape[0]
+
+    def values():
+        if dyadic:
+            return (rng.integers(-8, 9, size=k) / 4.0).astype(np.float32)
+        return rng.standard_normal(k, dtype=np.float32)
+
+    al = values()
+    au = al if symmetric else values()
+    ad = np.full(n, 2.0 * wide, dtype=np.float32)
+    return ia, ja.astype(np.int32), ad, al, au
+
+
+def rect_estimate(M, tm=128, k_step=1024):
+    """pad_ratio and streamed bytes the rectangular pack of ``M`` (float32
+    values, int32 indices) would have, from its tile slot counts alone
+    (nothing is packed: on a skewed matrix that pack is many gigabytes)."""
+    from repro_torch.core.csrc import bandwidth, row_of_slot
+    from repro_torch.core.plan import kernel_window
+    n = M.n
+    nt = -(-n // tm)
+    counts = np.bincount(row_of_slot(M) // tm, minlength=nt)
+    s = max(k_step, -(-int(counts.max()) // k_step) * k_step)
+    w_pad = kernel_window(tm, bandwidth(M))
+    streams = (3 if M.numerically_symmetric else 4) * 4 * nt * s
+    bytes_ = streams + 4 * nt * tm + 4 * (nt * tm + w_pad) + 4 * nt * w_pad
+    return {"s": s, "pad_ratio": nt * s / max(1, int(M.ja.shape[0])),
+            "streamed_bytes": bytes_}
+
+
 def scipy_csr(n, ia, ja, ad, al, au):
     """Float64 CSR of the same matrix, independent of the port."""
     import scipy.sparse as sp
@@ -107,10 +172,7 @@ def dyadic_vector(rng, shape):
     return (rng.integers(-8, 9, size=shape) / 8.0).astype(np.float32)
 
 
-def time_ms(fn, reps: int, warmup: int = 1) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
+def _event_ms(fn, reps: int) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -119,6 +181,16 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def time_ms(fn) -> float:
+    """Milliseconds per call, CUDA events: one warm-up call, one timed
+    call, then as many more (at most 10) as fit in about half a second."""
+    fn()
+    torch.cuda.synchronize()
+    first = _event_ms(fn, 1)
+    reps = max(1, min(10, int(500.0 / max(first, 1e-3))))
+    return first if reps == 1 else _event_ms(fn, reps)
 
 
 def abs_pack(pack):
@@ -157,9 +229,26 @@ def phase_build(verbose: bool):
 
 
 def _window_runners(pack, ks):
-    """name -> (kernel wrapper, plain version), for x (n,) and X (n, B)."""
+    """name -> (kernel wrapper, plain version), for x (n,) and X (n, B), of
+    a rectangular (K1-K4) or a flat (K5-K8) pack."""
     from repro_torch.kernels import csrc_spmm as mm
     from repro_torch.kernels import csrc_spmv as mv
+    from repro_torch.kernels import csrc_spmv_flat as fl
+    if isinstance(pack, fl.FlatBlockEll):
+        return {
+            "flat_spmv_stream": (
+                lambda x: fl.flat_spmv_stream_cuda(pack, x),
+                lambda x: fl.flat_windows_stream_plain(pack, x)),
+            "flat_spmv_onehot": (
+                lambda x: fl.flat_spmv_onehot_cuda(pack, x),
+                lambda x: fl.flat_windows_onehot_plain(pack, x)),
+            "flat_spmm_stream": (
+                lambda x: fl.flat_spmm_stream_cuda(pack, x),
+                lambda x: fl.flat_windows_stream_plain(pack, x)),
+            "flat_spmm_onehot": (
+                lambda x: fl.flat_spmm_onehot_cuda(pack, x),
+                lambda x: fl.flat_windows_onehot_plain(pack, x)),
+        }
     k_step = ks * 128
     return {
         "blockell_spmv_stream": (
@@ -195,40 +284,78 @@ def _compare(name, kernel, plain, x, exact, abs_plain=None):
         check(bool(((got - want).abs() <= bound).all()),
               f"{name}: exceeds {TOL} of the row's absolute sum "
               f"(max abs err {err})")
-    if "onehot" in name:
+    if "onehot" in name:      # K3, K4, K7, K8: a fixed order of additions
         check(torch.equal(got, kernel(x)),
               f"{name}: two runs on the same input differ")
     return err
 
 
 def phase_kernels(seed: int):
-    """K1-K4 against their plain versions at small and mid shapes."""
+    """K1-K8 against their plain versions at small and mid shapes."""
     from repro_torch.core import blockell, csrc
+    from repro_torch.kernels import csrc_spmv_flat as fl
     rng = np.random.default_rng(seed + 1)
+    f32, bf16, i32, i16 = (torch.float32, torch.bfloat16, torch.int32,
+                           torch.int16)
     cases = [
-        # name, n, half_band, fill, symmetric, dyadic, dtype, idx, tm, ks, Bs
-        ("f32_i32_ns_dyadic", 1000, 24, 0.6, False, True,
-         torch.float32, torch.int32, 128, 8, (1, 3, 8, 64)),
-        ("bf16_i16_sym_dyadic", 4133, 24, 0.6, True, True,
-         torch.bfloat16, torch.int16, 128, 8, (1, 3, 8)),
-        ("f32_i16_ns_empty_rows", 2500, 40, 0.5, False, True,
-         torch.float32, torch.int16, 32, 2, (1, 8)),
-        ("f32_i32_sym_general", 3001, 24, 0.6, True, False,
-         torch.float32, torch.int32, 128, 8, (1, 8)),
-        ("f32_i32_ns_general", 3001, 24, 0.6, False, False,
-         torch.float32, torch.int32, 128, 8, (1, 3)),
+        # name, grid, n, half_band (wide for flat), fill, symmetric, dyadic,
+        # dtype, idx, tm, ks, Bs
+        ("f32_i32_ns_dyadic", "rect", 1000, 24, 0.6, False, True,
+         f32, i32, 128, 8, (1, 3, 8, 64)),
+        ("bf16_i16_sym_dyadic", "rect", 4133, 24, 0.6, True, True,
+         bf16, i16, 128, 8, (1, 3, 8)),
+        ("f32_i16_ns_empty_rows", "rect", 2500, 40, 0.5, False, True,
+         f32, i16, 32, 2, (1, 8)),
+        ("f32_i32_sym_general", "rect", 3001, 24, 0.6, True, False,
+         f32, i32, 128, 8, (1, 8)),
+        ("f32_i32_ns_general", "rect", 3001, 24, 0.6, False, False,
+         f32, i32, 128, 8, (1, 3)),
         # B=3 leaves a partial column tile (BT=2 for K2) at this window
-        ("wide_band_w4096", 8192, 3900, 0.05, False, True,
-         torch.float32, torch.int32, 128, 8, (1, 3, 8)),
+        ("wide_band_w4096", "rect", 8192, 3900, 0.05, False, True,
+         f32, i32, 128, 8, (1, 3, 8)),
+        # flat grid: skewed matrices whose tiles carry 1 to many k-steps
+        ("flat_f32_i32_ns_dyadic", "flat", 3000, 200, 1.0, False, True,
+         f32, i32, 128, 2, (1, 3, 8, 64)),
+        ("flat_bf16_i16_sym_dyadic", "flat", 4133, 100, 1.0, True, True,
+         bf16, i16, 128, 8, (1, 3, 8)),
+        ("flat_f32_i16_ns_empty_rows", "flat", 2500, 150, 0.5, False, True,
+         f32, i16, 32, 1, (1, 8)),
+        ("flat_f32_i32_sym_general", "flat", 3001, 200, 1.0, True, False,
+         f32, i32, 128, 2, (1, 8)),
+        ("flat_f32_i32_ns_general", "flat", 3001, 200, 1.0, False, False,
+         f32, i32, 128, 2, (1, 3)),
+        # the flat main path's geometry (W = 640, 64-step tiles) at 1/32 size
+        ("flat_skew_w640", "flat", 65536, SKEW_WIDE, 1.0, False, True,
+         f32, i32, 128, 8, (1, 11)),
+        # the wide rows (6 % of n) must reach past 3,900 for W = 4096
+        ("flat_wide_band_w4096", "flat", 70000, 3900, 0.05, False, True,
+         f32, i32, 128, 8, (1, 3, 8)),
     ]
     report = []
-    for (name, n, hb, fill, sym, dyadic, vdt, idt, tm, ks, widths) in cases:
+    for (name, grid, n, hb, fill, sym, dyadic, vdt, idt, tm, ks,
+         widths) in cases:
         empty = slice(700, 1100) if "empty" in name else None
-        ia, ja, ad, al, au = band_arrays(n, hb, fill, seed + len(report), sym,
-                                         dyadic=dyadic, empty_rows=empty)
-        M = csrc.from_assembly(n, ia, ja, ad, al, au)
-        pack = blockell.pack(M, tm=tm, k_step=ks * 128, dtype=vdt,
-                             index_dtype=idt).to("cuda")
+        case_seed = seed + len(report)
+        if grid == "rect":
+            arrays = band_arrays(n, hb, fill, case_seed, sym, dyadic=dyadic,
+                                 empty_rows=empty)
+            M = csrc.from_assembly(n, *arrays)
+            pack = blockell.pack(M, tm=tm, k_step=ks * 128, dtype=vdt,
+                                 index_dtype=idt).to("cuda")
+            geometry = {"s": pack.s}
+        else:
+            arrays = skew_arrays(n, hb, SKEW_NARROW, case_seed, sym,
+                                 fill=fill, dyadic=dyadic, empty_rows=empty)
+            M = csrc.from_assembly(n, *arrays)
+            pack = fl.pack_flat(M, tm=tm, ks=ks, dtype=vdt,
+                                index_dtype=idt).to("cuda")
+            steps = torch.diff(pack.step_start.cpu())
+            geometry = {"total_steps": pack.total_steps,
+                        "steps_per_tile": [int(steps.min()),
+                                           int(steps.max())]}
+            check(int(steps.min()) == 1 and int(steps.max()) > 1,
+                  f"{name}: tiles should carry 1 to many steps, got "
+                  f"{geometry['steps_per_tile']}")
         if "w4096" in name:
             check(pack.w_pad == 4096, f"{name}: window {pack.w_pad}")
         runners = _window_runners(pack, ks)
@@ -245,26 +372,69 @@ def phase_kernels(seed: int):
                 err = _compare(f"{name}/{kname}/B{width}", kernel, plain, x,
                                exact=dyadic, abs_plain=abs_runners[kname][1])
                 errs[f"{kname}/B{width}"] = err
-        report.append({"case": name, "n": n, "nt": pack.nt, "s": pack.s,
+        report.append({"case": name, "n": n, "nt": pack.nt, **geometry,
                        "w_pad": pack.w_pad,
                        "pad_ratio": round(pack.pad_ratio, 4),
                        "exact": dyadic, "max_err": max(errs.values())})
+        del pack, runners, abs_runners
+        torch.cuda.empty_cache()
     emit("kernels", tolerance=f"exact on dyadic data, else {TOL} of the "
          "row's absolute sum", cases=report)
 
 
-class Workload:
-    """The serve/solve matrices, their references and their requests."""
+def path_specs(n: int, seed: int):
+    """The two main-path runs: per path, its matrices, the plan each is
+    registered with (None: the default heuristic plan), the (path,
+    variant) each must run, which matrix is refreshed and solved by CG
+    (symmetric) and by BiCGSTAB, and where each of its kernels is timed."""
+    from repro_torch.core.plan import ExecutionPlan
+    kernel_stream = ExecutionPlan(path="kernel", variant="stream")
+    flat_stream = ExecutionPlan(path="flat", variant="stream")
+    flat_onehot = ExecutionPlan(path="flat", variant="onehot")
+    return [
+        {"name": "kernel",
+         "matrices": {
+             "fem_ns": lambda: band_arrays(n, HALF_BAND, FILL, seed + 100,
+                                           False),
+             "fem_sym": lambda: band_arrays(n, HALF_BAND, FILL, seed + 101,
+                                            True)},
+         "plans": {"fem_ns": None, "fem_sym": kernel_stream},
+         "expect": {"fem_ns": ("kernel", "onehot"),
+                    "fem_sym": ("kernel", "stream")},
+         "sym": "fem_sym", "ns": "fem_ns",
+         "kernels": {"blockell_spmv_stream": ("fem_sym", 1),
+                     "blockell_spmm_stream": ("fem_sym", 11),
+                     "blockell_spmv_onehot": ("fem_ns", 1),
+                     "blockell_spmm_onehot": ("fem_ns", 11)}},
+        {"name": "flat",
+         "matrices": {
+             "skew_ns": lambda: skew_arrays(n, SKEW_WIDE, SKEW_NARROW,
+                                            seed + 200, False),
+             "skew_sym": lambda: skew_arrays(n, SKEW_WIDE, SKEW_NARROW,
+                                             seed + 201, True)},
+         "plans": {"skew_ns": flat_onehot, "skew_sym": flat_stream},
+         "expect": {"skew_ns": ("flat", "onehot"),
+                    "skew_sym": ("flat", "stream")},
+         "sym": "skew_sym", "ns": "skew_ns",
+         "kernels": {"flat_spmv_stream": ("skew_sym", 1),
+                     "flat_spmm_stream": ("skew_sym", 11),
+                     "flat_spmv_onehot": ("skew_ns", 1),
+                     "flat_spmm_onehot": ("skew_ns", 11)}},
+    ]
 
-    def __init__(self, n: int, seed: int):
+
+class Workload:
+    """One path's serve/solve matrices, their references and requests."""
+
+    def __init__(self, n: int, seed: int, spec):
         from repro_torch.core import csrc
         self.n = n
         self.arrays = {}
         self.M = {}
         self.csr = {}
         t0 = time.perf_counter()
-        for i, (mid, sym) in enumerate((("fem_ns", False), ("fem_sym", True))):
-            arr = band_arrays(n, HALF_BAND, FILL, seed + 100 + i, sym)
+        for mid, make in spec["matrices"].items():
+            arr = make()
             self.arrays[mid] = arr
             self.M[mid] = csrc.from_assembly(n, *arr)
         self.construct_s = time.perf_counter() - t0
@@ -300,30 +470,49 @@ class Workload:
         return float(err.max()), float(dev.max())
 
 
-def phase_serve(work: Workload):
+def _pack_report(M, pack):
+    from repro_torch.kernels.csrc_spmv_flat import FlatBlockEll
+    out = {"nt": pack.nt, "w_pad": pack.w_pad,
+           "pad_ratio": round(pack.pad_ratio, 4),
+           "streamed_bytes": pack.streamed_bytes()}
+    if isinstance(pack, FlatBlockEll):
+        steps = torch.diff(pack.step_start.cpu())
+        out.update(total_steps=pack.total_steps,
+                   steps_per_tile=[int(steps.min()), int(steps.max())],
+                   rect_estimate=rect_estimate(M, pack.tm, pack.step))
+    else:
+        out["s"] = pack.s
+    return out
+
+
+def phase_serve(work: Workload, spec):
     from repro_torch import obs
     from repro_torch.core import csrc
     from repro_torch.core.paths import BUILD_COUNTS
-    from repro_torch.core.plan import ExecutionPlan
     from repro_torch.kernels.ops import SpmvOperator
     from repro_torch.serve import SpmvServingEngine
 
-    stream_plan = ExecutionPlan(path="kernel", variant="stream")
+    mids = list(spec["matrices"])
     eng = SpmvServingEngine()          # default device: the card
+    obs.clear_trace()
     t0 = time.perf_counter()
-    plan_ns = eng.register("fem_ns", work.M["fem_ns"])
-    plan_sym = eng.register("fem_sym", work.M["fem_sym"], plan=stream_plan)
+    plans = {mid: eng.register(mid, work.M[mid], plan=spec["plans"][mid])
+             for mid in mids}
     register_s = time.perf_counter() - t0
     spans = {}
     for rec in obs.trace():        # pack and partition, summed over both
         if rec["name"].startswith("schedule."):
             spans[rec["name"]] = round(
                 spans.get(rec["name"], 0.0) + rec["duration_s"], 3)
-    check(plan_ns.path == "kernel" and plan_ns.variant == "onehot",
-          f"default plan is {plan_ns.key()}, expected kernel/onehot")
-    check(plan_sym.key() == stream_plan.key(), "explicit plan not honoured")
+    for mid, plan in plans.items():
+        check((plan.path, plan.variant) == spec["expect"][mid],
+              f"{mid}: plan is {plan.key()}, expected "
+              f"{spec['expect'][mid]}")
+        if spec["plans"][mid] is not None:
+            check(plan.key() == spec["plans"][mid].key(),
+                  f"{mid}: explicit plan not honoured")
     segment = {mid: SpmvOperator(work.M[mid], path="segment")
-               for mid in work.M}
+               for mid in mids}
     segment_abs = {}
     for mid, (ia, ja, ad, al, au) in work.arrays.items():
         segment_abs[mid] = SpmvOperator(
@@ -336,7 +525,7 @@ def phase_serve(work: Workload):
     waves = []
     for per_matrix in (11, 1):
         sent = {}
-        for mid in ("fem_ns", "fem_sym"):
+        for mid in mids:
             for _ in range(per_matrix):
                 x = work.rng.standard_normal(n, dtype=np.float32)
                 sent[eng.submit(mid, x)] = (mid, x)
@@ -346,13 +535,15 @@ def phase_serve(work: Workload):
         check(set(out) == set(sent), "not every request was answered")
         check(not eng.queue, "queue not drained")
         execute_s = {}
-        for mid, plan in (("fem_ns", plan_ns), ("fem_sym", plan_sym)):
+        for mid in mids:
             uids = [u for u, (m, _) in sent.items() if m == mid]
             for u in uids:
                 r = out[u]
-                check(r.batched == per_matrix and r.plan_key == plan.key()
+                check(r.batched == per_matrix
+                      and r.plan_key == plans[mid].key()
                       and r.executor == "local" and r.matrix_id == mid
-                      and r.path == "kernel" and r.strategy == "local",
+                      and r.path == spec["expect"][mid][0]
+                      and r.strategy == "local",
                       f"result metadata wrong: {r.meta()}")
                 check(r.timings["execute_s"] > 0, "no execute_s timing")
             X = np.stack([sent[u][1] for u in uids], axis=1)
@@ -367,110 +558,104 @@ def phase_serve(work: Workload):
                       "tick_s": round(tick_s, 4), **execute_s})
 
     # value refresh: same structure, new values -> no pack, no partition
-    ia, ja, ad, al, _ = work.arrays["fem_sym"]
+    sym = spec["sym"]
+    ia, ja, ad, al, _ = work.arrays[sym]
     M_t = csrc.from_assembly(n, ia, ja, 0.5 * ad, 0.5 * al, 0.5 * al)
-    csr_t = (0.5 * work.csr["fem_sym"]).tocsr()
+    csr_t = (0.5 * work.csr[sym]).tocsr()
     before = dict(BUILD_COUNTS.items())
     t0 = time.perf_counter()
-    eng.update_values("fem_sym", M_t)
+    eng.update_values(sym, M_t)
     refresh_s = time.perf_counter() - t0
     x = work.rng.standard_normal(n, dtype=np.float32)
-    uid = eng.submit("fem_sym", x)
+    uid = eng.submit(sym, x)
     out = eng.run_until_drained()
     delta = {k: v - before.get(k, 0) for k, v in BUILD_COUNTS.items()}
     check(delta.get("value_refresh") == 1 and not delta.get("pack")
-          and not delta.get("partition"),
+          and not delta.get("flat_pack") and not delta.get("partition"),
           f"value refresh rebuilt structure: {delta}")
     seg_t = SpmvOperator(M_t, path="segment")
     work.check_answers(csr_t, x[:, None], np.asarray(out[uid])[:, None],
-                       seg_t, segment_abs["fem_sym"],
-                       "serve fem_sym after refresh")
+                       seg_t, segment_abs[sym], f"serve {sym} after refresh")
     # back to the registered values for the solve phase
-    eng.update_values("fem_sym", work.M["fem_sym"])
+    eng.update_values(sym, work.M[sym])
 
-    packs = {mid: eng.executor(mid).op.pack for mid in work.M}
-    emit("serve", n=n, requests=24,
+    emit("serve", path=spec["name"], n=n, requests=2 * (11 + 1) + 1,
          nnz={mid: int(M.nnz) for mid, M in work.M.items()},
          construct_s=round(work.construct_s, 3),
          scipy_reference_s=round(work.scipy_s, 3),
          register_s=round(register_s, 3), register_spans_s=spans,
          refresh_s=round(refresh_s, 3),
-         plans={"fem_ns": plan_ns.key(), "fem_sym": plan_sym.key()},
-         pack={mid: {"nt": p.nt, "s": p.s, "w_pad": p.w_pad,
-                     "pad_ratio": round(p.pad_ratio, 4),
-                     "streamed_bytes": p.streamed_bytes()}
-               for mid, p in packs.items()},
+         plans={mid: plan.key() for mid, plan in plans.items()},
+         pack={mid: _pack_report(work.M[mid], eng.executor(mid).op.pack)
+               for mid in mids},
          build_counts=dict(BUILD_COUNTS.items()), waves=waves)
     return eng
 
 
-def phase_solve(work: Workload, eng):
+def phase_solve(work: Workload, eng, spec):
     from repro_torch.core import solvers
-    from repro_torch.core.plan import ExecutionPlan
 
     n = work.n
+    sym, ns = spec["sym"], spec["ns"]
     b = work.rng.standard_normal((n, 8), dtype=np.float32)
     t0 = time.perf_counter()
     res, op = solvers.cg_solve(
-        work.M["fem_sym"], torch.from_numpy(b), cache=eng.cache,
-        plan=ExecutionPlan(path="kernel", variant="stream"), tol=1e-6)
+        work.M[sym], torch.from_numpy(b), cache=eng.cache,
+        plan=spec["plans"][sym], tol=1e-6)
     torch.cuda.synchronize()
     cg_s = time.perf_counter() - t0
     check(res.converged, f"cg did not converge: {res.residual}")
     x = res.x.cpu().numpy().astype(np.float64)
-    r = b - work.csr["fem_sym"] @ x
+    r = b - work.csr[sym] @ x
     cg_true = float(np.max(np.linalg.norm(r, axis=0)
                            / np.linalg.norm(b, axis=0)))
     check(cg_true <= 1e-5, f"cg true residual {cg_true}")
 
     b1 = work.rng.standard_normal(n, dtype=np.float32)
-    op_ns = eng.executor("fem_ns").op           # default plan: one-hot
+    op_ns = eng.executor(ns).op
     t0 = time.perf_counter()
     res2 = solvers.bicgstab(op_ns, torch.from_numpy(b1).cuda(), tol=1e-6)
     torch.cuda.synchronize()
     bi_s = time.perf_counter() - t0
     check(res2.converged, f"bicgstab did not converge: {res2.residual}")
     x2 = res2.x.cpu().numpy().astype(np.float64)
-    r2 = b1 - work.csr["fem_ns"] @ x2
+    r2 = b1 - work.csr[ns] @ x2
     bi_true = float(np.linalg.norm(r2) / np.linalg.norm(b1))
     check(bi_true <= 1e-5, f"bicgstab true residual {bi_true}")
-    emit("solve", cg={"nrhs": 8, "plan": op.plan.key(), "iters": res.iters,
-                      "residual": res.residual, "true_residual": cg_true,
-                      "seconds": round(cg_s, 4)},
-         bicgstab={"plan": op_ns.plan.key(), "iters": res2.iters,
-                   "residual": res2.residual, "true_residual": bi_true,
-                   "seconds": round(bi_s, 4)})
+    emit("solve", path=spec["name"],
+         cg={"matrix": sym, "nrhs": 8, "plan": op.plan.key(),
+             "iters": res.iters, "residual": res.residual,
+             "true_residual": cg_true, "seconds": round(cg_s, 4)},
+         bicgstab={"matrix": ns, "plan": op_ns.plan.key(),
+                   "iters": res2.iters, "residual": res2.residual,
+                   "true_residual": bi_true, "seconds": round(bi_s, 4)})
 
 
-def phase_path_kernels(work: Workload, eng, launches):
-    """Each kernel at the shapes the main path gave it: against its plain
-    version, timed, beside its bound and one library call."""
+def phase_path_kernels(work: Workload, eng, spec, launches):
+    """Each kernel of one path at the shapes its main run gave it: against
+    its plain version, timed, beside its bound and one library call."""
     from repro_torch.kernels import _build
     n = work.n
     ks = 8
     rows = []
-    x1 = torch.from_numpy(work.rng.standard_normal(n, dtype=np.float32)).cuda()
-    x11 = torch.from_numpy(
-        work.rng.standard_normal((n, 11), dtype=np.float32)).cuda()
-    for kname, mid, x in (("blockell_spmv_stream", "fem_sym", x1),
-                          ("blockell_spmm_stream", "fem_sym", x11),
-                          ("blockell_spmv_onehot", "fem_ns", x1),
-                          ("blockell_spmm_onehot", "fem_ns", x11)):
+    for kname, (mid, nrhs) in spec["kernels"].items():
+        shape = (n,) if nrhs == 1 else (n, nrhs)
+        x = torch.from_numpy(
+            work.rng.standard_normal(shape, dtype=np.float32)).cuda()
         pack = eng.executor(mid).op.pack
         kernel, plain = _window_runners(pack, ks)[kname]
         abs_plain = _window_runners(abs_pack(pack), ks)[kname][1]
         err = _compare(f"path/{kname}", kernel, plain, x, exact=False,
                        abs_plain=abs_plain)
-        nrhs = 1 if x.ndim == 1 else x.shape[1]
         csr = work.csr[mid]
         lib = torch.sparse_csr_tensor(
             torch.from_numpy(csr.indptr.astype(np.int64)),
             torch.from_numpy(csr.indices.astype(np.int64)),
             torch.from_numpy(csr.data.astype(np.float32)),
             size=(n, n)).cuda()
-        ms = time_ms(lambda: kernel(x), reps=10)
-        plain_ms = time_ms(lambda: plain(x), reps=2)
-        library_ms = time_ms(lambda: lib @ x, reps=5)
+        ms = time_ms(lambda: kernel(x))
+        plain_ms = time_ms(lambda: plain(x))
+        library_ms = time_ms(lambda: lib @ x)
         del lib
         bytes_moved = pack.streamed_bytes(nrhs)
         flops = (2 * work.M[mid].nnz - n) * nrhs
@@ -484,9 +669,10 @@ def phase_path_kernels(work: Workload, eng, launches):
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": library_ms,
-            "shape": {"matrix": mid, "nrhs": nrhs, "nt": pack.nt,
-                      "s": pack.s, "w_pad": pack.w_pad},
+            "shape": {"matrix": mid, "nrhs": nrhs, **_pack_report(
+                work.M[mid], pack)},
             "bytes": bytes_moved, "flops": flops})
+        del x
         torch.cuda.empty_cache()
     return rows
 
@@ -500,30 +686,44 @@ def main() -> int:
                     help="print nvcc's register / shared-memory report")
     args = ap.parse_args()
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs one "
              "NVIDIA GPU")
     from repro_torch import device as device_mod
     from repro_torch.kernels import _build
-    from repro_torch.kernels import csrc_spmm, csrc_spmv  # noqa: F401  (register)
+    from repro_torch.kernels import (csrc_spmm, csrc_spmv,  # noqa: F401
+                                     csrc_spmv_flat)        # (register)
 
     torch.manual_seed(args.seed)
     card = phase_env()
     phase_build(args.verbose_build)
     phase_kernels(args.seed)
 
-    t0 = time.perf_counter()
-    work = Workload(args.n, args.seed)
-    _build.reset_launch_counts()       # the main path starts here ...
-    eng = phase_serve(work)
-    phase_solve(work, eng)
-    launches = _build.launch_counts()  # ... and ends here
-    for name, count in launches.items():
-        check(count > 0, f"kernel {name} was never launched on the main path")
-    emit("main_path", launches=launches,
-         seconds=round(time.perf_counter() - t0, 3))
+    launches = {}
+    rows = []
+    for spec in path_specs(args.n, args.seed):
+        t0 = time.perf_counter()
+        work = Workload(args.n, args.seed, spec)
+        _build.reset_launch_counts()       # this path's main run starts here
+        eng = phase_serve(work, spec)
+        phase_solve(work, eng, spec)
+        counts = _build.launch_counts()    # ... and ends here
+        for name in spec["kernels"]:
+            check(counts[name] > 0,
+                  f"kernel {name} was never launched on the {spec['name']} "
+                  "path's main run")
+            launches[name] = counts[name]
+        emit("main_path", path=spec["name"], launches=counts,
+             seconds=round(time.perf_counter() - t0, 3))
+        rows += phase_path_kernels(work, eng, spec, launches)
+        del eng, work
+        gc.collect()
+        torch.cuda.empty_cache()
+    for name in _build.KERNELS:
+        check(name in launches, f"kernel {name} is on no main path")
+    emit("total", seconds=round(time.perf_counter() - t_start, 3))
 
-    rows = phase_path_kernels(work, eng, launches)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": device_mod.describe("cuda:0")}),

@@ -54,6 +54,39 @@ def blockell_from_arrays(*, n: int, tm: int, nt: int, w_pad: int, s: int,
         pad_ratio=float(pad_ratio))
 
 
+def flat_from_arrays(*, n: int, tm: int, nt: int, w_pad: int,
+                     total_steps: int, ks: int, vals_l, vals_u, col_local,
+                     row_in_win, ad, tile_of_step, first_of_tile,
+                     num_symmetric: bool, pad_ratio: float,
+                     value_dtype: str = "float32"):
+    """A :class:`~repro_torch.kernels.csrc_spmv_flat.FlatBlockEll` from a
+    foreign flat pack.  Streams arrive in the ``(total, ks, 128)`` layout
+    (or already flat per step) and are stored as (total, ks·128); value
+    streams arrive as float32 and are narrowed to ``value_dtype``.  The
+    step ranges are derived and validated here: a malformed pack raises
+    ValueError."""
+    from repro_torch.kernels.csrc_spmv_flat import FlatBlockEll
+    vdt = _VALUE_DTYPES[value_dtype]
+    shape = (int(total_steps), int(ks) * 128)
+
+    def values(a):
+        return _tensor(np.asarray(a, np.float32).reshape(shape)).to(vdt)
+
+    def indices(a):
+        return _tensor(np.asarray(a).reshape(shape))
+
+    vl = values(vals_l)
+    return FlatBlockEll(
+        n=int(n), tm=int(tm), nt=int(nt), w_pad=int(w_pad),
+        total_steps=int(total_steps), ks=int(ks),
+        vals_l=vl, vals_u=vl if num_symmetric else values(vals_u),
+        col_local=indices(col_local), row_in_win=indices(row_in_win),
+        ad=_tensor(ad, np.float32).to(vdt),
+        tile_of_step=_tensor(tile_of_step, np.int32),
+        first_of_tile=_tensor(first_of_tile, np.int32),
+        num_symmetric=bool(num_symmetric), pad_ratio=float(pad_ratio))
+
+
 def plan_from_dict(d: Dict) -> ExecutionPlan:
     """An :class:`ExecutionPlan` from another plan's ``to_dict()``."""
     return ExecutionPlan.from_dict(dict(d))

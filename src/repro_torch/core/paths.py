@@ -20,11 +20,11 @@ operator stack needs to know about it:
 
 ``register_path`` wires the name into ``plan.PATHS`` (so ``ExecutionPlan``
 validation accepts it) and makes the path visible to the operator, the
-schedule layer and the tuner.  Registered here: ``segment`` and
-``kernel``.  The JAX package's ``colorful``, ``flat`` and ``nnzsplit``
-entries (and the ``ShardSupport`` record of the mesh strategies) are not
-in this package yet; a plan naming one of them is refused with
-``ValueError`` by the operator.
+schedule layer and the tuner.  Registered here: ``segment``, ``kernel``
+and ``flat``.  The JAX package's ``colorful`` and ``nnzsplit`` entries (and
+the ``ShardSupport`` record of the mesh strategies, with the flat path's
+shard layouts) are not in this package yet; a plan naming one of those
+paths is refused with ``ValueError``.
 
 The executor factories receive the matrix and the schedule **already on
 the executor's device** (``SpmvOperator._bind`` moves them once) and
@@ -308,12 +308,12 @@ def _kernel_build(M, plan, coloring=None) -> dict:
                                   index_dtype=_index_dtype_of(plan))}
 
 
+def _host_f32(a) -> np.ndarray:
+    return a.detach().to(device="cpu", dtype=torch.float32).numpy()
+
+
 def _kernel_save(sched):
     pk = sched.pack
-
-    def f32(a):
-        return a.detach().to(device="cpu", dtype=torch.float32).numpy()
-
     # value streams are persisted as float32 (bf16 -> f32 widening is
     # lossless; numpy npz has no native bfloat16) and re-narrowed on load
     # to the dtype recorded in the meta
@@ -323,11 +323,11 @@ def _kernel_save(sched):
                      "value_dtype": str(pk.vals_l.dtype).replace("torch.", ""),
                      "pad_ratio": pk.pad_ratio}}
     arrays = dict(
-        pack_vals_l=f32(pk.vals_l),
-        pack_vals_u=f32(pk.vals_u),
+        pack_vals_l=_host_f32(pk.vals_l),
+        pack_vals_u=_host_f32(pk.vals_u),
         pack_col_local=pk.col_local.detach().cpu().numpy(),
         pack_row_in_win=pk.row_in_win.detach().cpu().numpy(),
-        pack_ad=f32(pk.ad),
+        pack_ad=_host_f32(pk.ad),
     )
     return meta, arrays
 
@@ -395,4 +395,118 @@ register_path(KernelPath(
     make_spmv=_kernel_make_spmv,
     make_spmm=_kernel_make_spmm,
     refresh_values=_kernel_refresh,
+))
+
+
+# ---------------------------------------------------------------------------
+# 'flat' — flat-grid block-ELL CUDA kernels (skewed row-length matrices)
+# ---------------------------------------------------------------------------
+
+# Candidate gate: coefficient of variation of nnz-per-row above which the
+# rectangular grid's per-tile padding is expected to waste bandwidth and
+# the flat grid becomes worth measuring.  (Feasibility — can the matrix be
+# tiled at all — is _windowed_feasible, identical to the rectangular
+# kernel; the skew statistic only gates *enumeration*.)
+FLAT_SKEW_MIN = 0.25
+
+
+def flat_worth_measuring(stats) -> bool:
+    """The flat enumerator's skew gate: is the nnz-per-row spread large
+    enough that per-tile-exact packing could beat the rectangular grid?"""
+    return stats.nnz_row_dev > FLAT_SKEW_MIN * max(stats.nnz_row_mean, 1.0)
+
+
+def _flat_candidates(stats, space):
+    if not flat_worth_measuring(stats):
+        return []
+    return _windowed_candidates("flat", stats, space)
+
+
+def _flat_build(M, plan, coloring=None) -> dict:
+    from repro_torch.kernels import csrc_spmv_flat as flat_mod
+    if not M.is_square:
+        raise ValueError(
+            "flat path packs the square CSRC part only; "
+            "use 'segment' for rectangular matrices")
+    BUILD_COUNTS.inc("flat_pack")
+    return {"flat_pack": flat_mod.pack_flat(
+        M, tm=plan.tm, ks=plan.k_step_sublanes, w_cap=plan.w_cap,
+        dtype=_value_dtype_of(plan),
+        index_dtype=_index_dtype_of(plan))}
+
+
+def _flat_save(sched):
+    pk = sched.flat_pack
+    shape = (pk.total_steps, pk.ks, 128)
+
+    # the JAX package's layout: (total, ks, 128) streams, float32 values
+    # (re-narrowed on load to the recorded value dtype); step_start is
+    # derived again on load, never stored
+    meta = {"flat_pack": {"n": pk.n, "tm": pk.tm, "nt": pk.nt,
+                          "w_pad": pk.w_pad,
+                          "total_steps": pk.total_steps, "ks": pk.ks,
+                          "num_symmetric": bool(pk.num_symmetric),
+                          "value_dtype": str(pk.vals_l.dtype).replace(
+                              "torch.", ""),
+                          "pad_ratio": pk.pad_ratio}}
+    arrays = dict(
+        flat_vals_l=_host_f32(pk.vals_l).reshape(shape),
+        flat_vals_u=_host_f32(pk.vals_u).reshape(shape),
+        flat_col_local=pk.col_local.detach().cpu().numpy().reshape(shape),
+        flat_row_in_win=pk.row_in_win.detach().cpu().numpy().reshape(shape),
+        flat_ad=_host_f32(pk.ad),
+        flat_tile_of_step=pk.tile_of_step.detach().cpu().numpy(),
+        flat_first_of_tile=pk.first_of_tile.detach().cpu().numpy(),
+    )
+    return meta, arrays
+
+
+def _flat_load(meta, z) -> dict:
+    from repro_torch.convert import flat_from_arrays
+    pm = meta["flat_pack"]
+    return {"flat_pack": flat_from_arrays(
+        n=pm["n"], tm=pm["tm"], nt=pm["nt"], w_pad=pm["w_pad"],
+        total_steps=pm["total_steps"], ks=pm["ks"],
+        num_symmetric=bool(pm["num_symmetric"]),
+        pad_ratio=float(pm["pad_ratio"]),
+        value_dtype=pm.get("value_dtype", "float32"),
+        **{f: z["flat_" + f] for f in (
+            "vals_l", "vals_u", "col_local", "row_in_win", "ad",
+            "tile_of_step", "first_of_tile")})}
+
+
+def _flat_refresh(M, sched) -> dict:
+    from repro_torch.kernels import csrc_spmv_flat as flat_mod
+    return {"flat_pack": flat_mod.refresh_flat_values(sched.flat_pack, M)}
+
+
+def _flat_make_spmv(M, schedule, plan, *, coloring=None):
+    if plan.variant == "stream":
+        from repro_torch.kernels import csrc_spmv_stream as stream_mod
+        return functools.partial(stream_mod.flat_spmv_stream,
+                                 schedule.flat_pack)
+    from repro_torch.kernels import csrc_spmv_flat as flat_mod
+    return functools.partial(flat_mod.flat_spmv, schedule.flat_pack)
+
+
+def _flat_make_spmm(M, schedule, plan, *, coloring=None):
+    if plan.variant == "stream":
+        from repro_torch.kernels import csrc_spmv_stream as stream_mod
+        return functools.partial(stream_mod.flat_spmm_stream,
+                                 schedule.flat_pack)
+    from repro_torch.kernels import csrc_spmv_flat as flat_mod
+    return functools.partial(flat_mod.flat_spmm, schedule.flat_pack)
+
+
+register_path(KernelPath(
+    name="flat",
+    feasible=_windowed_feasible,
+    candidates=_flat_candidates,
+    artifact_fields=_windowed_fields,
+    build_artifact=_flat_build,
+    save_artifact=_flat_save,
+    load_artifact=_flat_load,
+    make_spmv=_flat_make_spmv,
+    make_spmm=_flat_make_spmm,
+    refresh_values=_flat_refresh,
 ))

@@ -12,9 +12,11 @@ cached, and shipped between processes instead of being hard-coded in
                      the KernelPath registry (core/paths.py):
                        'kernel'   rectangular-grid block-ELL CUDA kernels
                                   (banded matrices)
+                       'flat'     flat-grid block-ELL CUDA kernels
+                                  (skewed row lengths)
                        'segment'  segment-sum torch path (any matrix)
-                     The JAX package's 'flat', 'nnzsplit' and 'colorful'
-                     paths are not registered in this package yet.
+                     The JAX package's 'nnzsplit' and 'colorful' paths
+                     are not registered in this package yet.
                      New kernels add a name by registering a KernelPath —
                      not by editing this module.
   tm                 block-ELL row-tile height (kernel path)

@@ -14,6 +14,7 @@ path re-ran the greedy colorer).  ``SpmvSchedule`` gives them one home:
   halo             per-part halo widths (§3.1 effective accumulation;
                    the distributed 'halo' strategy's exchange windows)
   pack             the block-ELL pack for the ``kernel`` path
+  flat_pack        the flat-grid pack for the ``flat`` path
 
 A schedule is built **once** per (matrix fingerprint, value digest, plan,
 partition width) and stored next to the plan in the tuner's
@@ -92,13 +93,15 @@ class SpmvSchedule:
     structure_digest: str = ""
 
     def to(self, device) -> "SpmvSchedule":
-        """The same schedule with its tensor-bearing artifact (the pack)
-        on ``device``; partition and halo stay host numpy."""
-        if self.pack is None:
+        """The same schedule with its tensor-bearing artifacts (the
+        block-ELL or flat pack) on ``device``; partition and halo stay host
+        numpy."""
+        moved = {f: getattr(self, f).to(device)
+                 for f in ("pack", "flat_pack")
+                 if getattr(self, f) is not None}
+        if all(moved[f] is getattr(self, f) for f in moved):
             return self
-        pack = self.pack.to(device)
-        return self if pack is self.pack else dataclasses.replace(
-            self, pack=pack)
+        return dataclasses.replace(self, **moved)
 
     def key(self) -> str:
         return schedule_key(self.fingerprint, self.value_digest, self.plan,

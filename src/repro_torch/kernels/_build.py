@@ -39,7 +39,7 @@ CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-_HEADERS = ("blockell_common.cuh",)
+_HEADERS = ("blockell_common.cuh", "window_kernels.cuh")
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 _lock = threading.Lock()
@@ -177,10 +177,12 @@ def reset_launch_counts() -> None:
         k.launches = 0
 
 
-def stream_flags(pack) -> tuple:
+def stream_flags(pack, slots_shape: tuple) -> tuple:
     """``(values are bf16, indices are int16)`` for a pack, after checking
     that its streams have the dtypes, shapes and layout the kernels are
-    instantiated for."""
+    instantiated for.  ``slots_shape`` is the shape of the four slot
+    streams: (NT, S) on the rectangular grid, (total steps, step) on the
+    flat grid."""
     vdt, idt = pack.vals_l.dtype, pack.col_local.dtype
     if vdt not in (torch.float32, torch.bfloat16):
         raise TypeError(f"value streams must be float32 or bfloat16, got {vdt}")
@@ -190,14 +192,15 @@ def stream_flags(pack) -> tuple:
         if getattr(pack, name).dtype != want:
             raise TypeError(f"pack.{name} is {getattr(pack, name).dtype}, "
                             f"expected {want}")
-    shapes = {"vals_l": (pack.nt, pack.s), "vals_u": (pack.nt, pack.s),
-              "col_local": (pack.nt, pack.s), "row_in_win": (pack.nt, pack.s),
+    slots_shape = tuple(slots_shape)
+    shapes = {"vals_l": slots_shape, "vals_u": slots_shape,
+              "col_local": slots_shape, "row_in_win": slots_shape,
               "ad": (pack.nt, pack.tm)}
     for name, shape in shapes.items():
         a = getattr(pack, name)
         if tuple(a.shape) != shape or not a.is_contiguous():
             raise ValueError(f"pack.{name} must be contiguous {shape}, got "
                              f"{tuple(a.shape)}")
-    if max(pack.nt * pack.s, pack.nt * pack.w_pad) >= 2 ** 31:
+    if max(slots_shape[0] * slots_shape[1], pack.nt * pack.w_pad) >= 2 ** 31:
         raise ValueError("pack too large for the kernels' 32-bit tile math")
     return (vdt == torch.bfloat16, idt == torch.int16)

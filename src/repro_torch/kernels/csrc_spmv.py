@@ -65,7 +65,7 @@ def _operand(pack: BlockEll, x: torch.Tensor, ndim: int) -> torch.Tensor:
     if pack.vals_l.device != x.device:
         raise ValueError(
             f"pack lives on {pack.vals_l.device}, x on {x.device}; bind the "
-            "pack with BlockEll.to(device) first")
+            "pack with its .to(device) first")
     if x.ndim != ndim or x.shape[0] != pack.n or x.numel() == 0:
         raise ValueError(f"x has shape {tuple(x.shape)}, expected "
                          f"({pack.n}{', B' if ndim == 2 else ''})")
@@ -145,7 +145,7 @@ def _kernel_operands(pack: BlockEll, x: torch.Tensor, ndim: int):
         raise ValueError("the CUDA kernels take CUDA tensors; a CPU tensor "
                          "goes to the plain version")
     x = _operand(pack, x, ndim)
-    bf16, i16 = _build.stream_flags(pack)
+    bf16, i16 = _build.stream_flags(pack, (pack.nt, pack.s))
     pointers = (pack.vals_l.data_ptr(), pack.vals_u.data_ptr(),
                 pack.col_local.data_ptr(), pack.row_in_win.data_ptr(),
                 pack.ad.data_ptr())

@@ -1,16 +1,21 @@
-"""Fused streaming forms of the block-ELL CSRC products (rectangular grid).
+"""Fused streaming forms of the block-ELL CSRC products (rectangular and
+flat grids).
 
 The same per-tile-window computation as the streaming kernels, evaluated
 as one fused expression over all (tile, slot) pairs: one gather + one
 ``index_add_`` per product term, then the unchanged ``overlap_add``
 accumulation.  In this package these fused forms **are the plain PyTorch
 versions** of the streaming CUDA kernels (K1 in csrc_spmv.py, K2 in
-csrc_spmm.py): the CPU tests run them, and on the card the kernels are
-held against them.
+csrc_spmm.py, K5/K6 in csrc_spmv_flat.py): the CPU tests run them, and on
+the card the kernels are held against them.  The flat grid differs only in
+where a slot row's tile comes from: ``tile_of_step`` instead of the row
+index of the rectangular stream.
 
-``blockell_spmv_stream`` / ``blockell_spmm_stream`` are the executors a
-``variant='stream'`` plan binds.  They dispatch on where the tensor lives:
-a CUDA tensor launches K1/K2, a CPU tensor takes the fused form.
+``blockell_spmv_stream`` / ``blockell_spmm_stream`` (``kernel`` path) and
+``flat_spmv_stream`` / ``flat_spmm_stream`` (``flat`` path) are the
+executors a ``variant='stream'`` plan binds.  They dispatch on where the
+tensor lives: a CUDA tensor launches K1/K2 or K5/K6, a CPU tensor takes the
+fused form.
 
 Sentinel discipline (shared with the packer): padded slots carry value 0
 and column sentinel ``w_pad``; the fused gather clamps the sentinel into
@@ -25,6 +30,7 @@ import torch
 from repro_torch.core.blockell import BlockEll, pad_x
 from repro_torch.kernels import csrc_spmm as rect_mm_mod
 from repro_torch.kernels import csrc_spmv as rect_mod
+from repro_torch.kernels import csrc_spmv_flat as flat_mod
 from repro_torch.kernels.ref import segment_sum
 
 
@@ -110,3 +116,33 @@ def blockell_spmm_stream(pack: BlockEll, X: torch.Tensor,
     return rect_mm_mod.blockell_spmm(pack, X,
                                      k_step_sublanes=k_step_sublanes,
                                      variant="stream")
+
+
+def _flat_streams(pack):
+    tile = pack.tile_of_step.to(torch.int64)[:, None]
+    cols = pack.col_local.to(torch.int64)
+    rows = pack.row_in_win.to(torch.int64)
+    vl = pack.vals_l.reshape(-1)
+    vu = vl if pack.num_symmetric else pack.vals_u.reshape(-1)
+    idx = _windowed_indices(tile, cols, rows, tm=pack.tm,
+                            w_pad=pack.w_pad, nt=pack.nt)
+    return vl, vu, idx
+
+
+def flat_windows_fused(pack, x: torch.Tensor) -> torch.Tensor:
+    """Per-tile windows (NT, W) for x (n,), (NT, W, B) for x (n, B), of a
+    flat pack by the fused form — the plain version of K5 and K6."""
+    vl, vu, idx = _flat_streams(pack)
+    x_full = pad_x(pack, x.to(torch.float32))
+    wins = _windowed_product(x_full, vl, vu, *idx, nt=pack.nt,
+                             w_pad=pack.w_pad)
+    return wins + _diag_windows(pack.ad, x_full, nt=pack.nt, tm=pack.tm,
+                                w_pad=pack.w_pad)
+
+
+def flat_spmv_stream(pack, x: torch.Tensor) -> torch.Tensor:
+    return flat_mod.flat_spmv(pack, x, variant="stream")
+
+
+def flat_spmm_stream(pack, X: torch.Tensor) -> torch.Tensor:
+    return flat_mod.flat_spmm(pack, X, variant="stream")

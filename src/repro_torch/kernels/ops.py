@@ -14,6 +14,8 @@ produce the SpMV and SpMM callables — this module contains no per-path
 
   * 'kernel'   rectangular-grid block-ELL CUDA kernels when the matrix is
     banded enough to window;
+  * 'flat'     flat-grid block-ELL CUDA kernels (per-tile-exact k-steps,
+    for skewed row lengths; chosen only by an explicit plan);
   * 'segment'  ``index_add_`` torch path (any matrix, incl. the
     rectangular tail).
 
@@ -49,8 +51,8 @@ class SpmvOperator:
 
     Builds (or fetches from ``cache``) the schedule once; call like a
     function with x of shape (m,) or (m, r) on the operator's device.
-    ``path`` is one of 'auto' | 'kernel' | 'segment'; or pass ``plan=`` /
-    use :meth:`from_plan` to pin every degree of freedom.
+    ``path`` is one of 'auto' | 'kernel' | 'flat' | 'segment'; or pass
+    ``plan=`` / use :meth:`from_plan` to pin every degree of freedom.
     """
 
     def __init__(self, M: CSRC, path: str = "auto", tm: int = 128,
@@ -114,7 +116,9 @@ class SpmvOperator:
         self.M = M
         self.schedule = schedule
         bound = schedule.to(self.device)
-        self.pack = bound.pack
+        # the windowed path's pack ('kernel' or 'flat'), None for 'segment'
+        self.pack = next((p for p in (bound.pack, bound.flat_pack)
+                          if p is not None), None)
         m_dev = M.to(self.device)
         self._fn = self._entry.make_spmv(m_dev, bound, self.plan,
                                          coloring=coloring)

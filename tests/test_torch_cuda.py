@@ -1,4 +1,4 @@
-"""The CUDA kernels against their plain versions, on the card.
+"""The CUDA kernels (K1-K8) against their plain versions, on the card.
 
 These tests need an NVIDIA GPU and ``nvcc`` and skip elsewhere (the check
 is made inside the fixture, never at import).  Run them on the card with
@@ -17,6 +17,7 @@ from repro_torch.core.plan import ExecutionPlan
 from repro_torch.kernels import _build
 from repro_torch.kernels import csrc_spmm as mm
 from repro_torch.kernels import csrc_spmv as mv
+from repro_torch.kernels import csrc_spmv_flat as fl
 from repro_torch.kernels.ops import SpmvOperator
 
 pytestmark = pytest.mark.cuda
@@ -60,7 +61,9 @@ def test_kernels_equal_plain_versions_on_dyadic_data(card, vdt, idt,
     assert torch.equal(mm.spmm_windows_onehot_cuda(pack, X, 1024),
                        mm.spmm_windows_onehot_plain(pack, X, 1024))
     after = _build.launch_counts()
-    assert all(after[k] == before[k] + 1 for k in after)
+    assert all(after[k] == before[k] + 1 for k in
+               ("blockell_spmv_stream", "blockell_spmv_onehot",
+                "blockell_spmm_stream", "blockell_spmm_onehot"))
 
 
 def test_operator_on_the_card_launches_kernels_and_matches_segment(card):
@@ -78,3 +81,60 @@ def test_operator_on_the_card_launches_kernels_and_matches_segment(card):
         assert _build.launch_counts()[kernel] == before + 1
         with pytest.raises(ValueError, match="bound to"):
             op(x)                      # a CPU tensor is refused, not served
+
+
+def _dyadic_skewed(n=3000, symmetric=False, seed=0):
+    """A skewed matrix (wide band on the first 6 % of rows) whose tiles
+    carry 1 to many k-steps of 256 slots."""
+    M = csrc.skewed_band(n, 150, 3, seed=seed, numeric_symmetric=symmetric)
+
+    def q(a):
+        return torch.round(a * 4.0) / 4.0
+    import dataclasses
+    return dataclasses.replace(M, ad=q(M.ad), al=q(M.al), au=q(M.au))
+
+
+@pytest.mark.parametrize("vdt,idt", [(torch.float32, torch.int32),
+                                     (torch.bfloat16, torch.int16)])
+@pytest.mark.parametrize("symmetric", [False, True])
+def test_flat_kernels_equal_plain_versions_on_dyadic_data(card, vdt, idt,
+                                                          symmetric):
+    """K5-K8, each launched once, against their plain versions."""
+    M = _dyadic_skewed(symmetric=symmetric)
+    pack = fl.pack_flat(M, ks=2, dtype=vdt, index_dtype=idt).to(card)
+    steps = torch.diff(pack.step_start.cpu())
+    assert steps.min() == 1 and steps.max() > 1
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy((rng.integers(-8, 9, M.n) / 8).astype(np.float32)
+                         ).to(card)
+    X = torch.from_numpy((rng.integers(-8, 9, (M.n, 5)) / 8
+                          ).astype(np.float32)).to(card)
+    names = ("flat_spmv_stream", "flat_spmv_onehot", "flat_spmm_stream",
+             "flat_spmm_onehot")
+    before = _build.launch_counts()
+    assert torch.equal(fl.flat_spmv_stream_cuda(pack, x),
+                       fl.flat_windows_stream_plain(pack, x))
+    assert torch.equal(fl.flat_spmv_onehot_cuda(pack, x),
+                       fl.flat_windows_onehot_plain(pack, x))
+    assert torch.equal(fl.flat_spmm_stream_cuda(pack, X),
+                       fl.flat_windows_stream_plain(pack, X))
+    assert torch.equal(fl.flat_spmm_onehot_cuda(pack, X),
+                       fl.flat_windows_onehot_plain(pack, X))
+    after = _build.launch_counts()
+    assert all(after[k] == before[k] + 1 for k in names)
+
+
+def test_flat_plan_on_the_card_launches_kernels_and_matches_segment(card):
+    M = _dyadic_skewed(n=5000)
+    x = torch.from_numpy((np.random.default_rng(2).integers(-8, 9, (M.n, 3))
+                          / 8).astype(np.float32))
+    want = SpmvOperator(M, path="segment")(x.cuda())
+    for variant, kernel in (("stream", "flat_spmm_stream"),
+                            ("onehot", "flat_spmm_onehot")):
+        op = SpmvOperator.from_plan(M, ExecutionPlan(path="flat",
+                                                     variant=variant))
+        assert isinstance(op.pack, fl.FlatBlockEll)
+        assert op.pack.device.type == "cuda"
+        before = _build.launch_counts()[kernel]
+        assert torch.equal(op(x.cuda()), want)
+        assert _build.launch_counts()[kernel] == before + 1

@@ -157,8 +157,8 @@ def test_wrappers_validate_and_never_launch_on_cpu():
     tmv.blockell_spmv_windows(pt, x, k_step_sublanes=KS, variant="stream")
     tmm.blockell_spmm_windows(pt, x[:, None], k_step_sublanes=KS)
     assert _build.launch_counts() == before       # CPU tensors: plain only
-    assert set(before) == {"blockell_spmv_stream", "blockell_spmv_onehot",
-                           "blockell_spmm_stream", "blockell_spmm_onehot"}
+    assert {"blockell_spmv_stream", "blockell_spmv_onehot",
+            "blockell_spmm_stream", "blockell_spmm_onehot"} <= set(before)
     for launch in (lambda: tmv.spmv_windows_stream_cuda(pt, x),
                    lambda: tmv.spmv_windows_onehot_cuda(pt, x, KS * 128),
                    lambda: tmm.spmm_windows_stream_cuda(pt, x[:, None]),

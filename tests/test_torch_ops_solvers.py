@@ -117,8 +117,8 @@ def test_operator_refuses_what_is_not_ported_yet():
     Mt = to_torch_csrc(MATRICES["fem_band"]())
     with pytest.raises(ValueError, match="no kernel path 'colorful'"):
         tops.SpmvOperator(Mt, path="colorful", device="cpu")
-    with pytest.raises(ValueError, match="flat"):
-        tops.SpmvOperator(Mt, path="flat", device="cpu")
+    with pytest.raises(ValueError, match="nnzsplit"):
+        tops.SpmvOperator(Mt, path="nnzsplit", device="cpu")
     mesh = tplan.ExecutionPlan(path="segment", strategy="mesh", mesh_p=2)
     with pytest.raises(ValueError, match="local"):
         tops.SpmvOperator.from_plan(Mt, mesh, device="cpu")
