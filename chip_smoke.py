@@ -3,22 +3,32 @@
 
     python3 chip_smoke.py [--seed 0] [--n 2097152] [--verbose-build]
 
-Builds the eight CUDA kernels from the sources in this checkout, holds each
-against its plain PyTorch version on the card, then drives two of the
-port's paths through its public entry points at a size a deployment would
-call real, one after the other:
+Builds the twelve CUDA kernels from the sources in this checkout, holds
+each against its plain PyTorch version on the card, then drives three of
+the port's kernel paths through its public entry points at a size a
+deployment would call real, one after the other:
 
-  kernel  two FEM-like band matrices (``--n`` rows, 24 sub-diagonals at
-          fill 0.6, about 62 M non-zeros each at the default size) on the
-          rectangular block-ELL grid (K1-K4);
-  flat    two skewed FEM-like matrices (``--n`` rows, a dense half-band of
-          512 on the first 6 % of rows and of 3 on the rest, about 142 M
-          non-zeros each) on the flat grid (K5-K8).
+  kernel    two FEM-like band matrices (``--n`` rows, 24 sub-diagonals at
+            fill 0.6, about 62 M non-zeros each at the default size) on the
+            rectangular block-ELL grid (K1-K4);
+  flat      two skewed FEM-like matrices (``--n`` rows, a dense half-band
+            of 512 on the first 6 % of rows and of 3 on the rest, about
+            142 M non-zeros each) on the flat grid (K5-K8);
+  nnzsplit  two unstructured matrices (``--n`` rows): the Laplacian-like
+            matrix of a power-law graph with shuffled labels (mean degree
+            32, about 69 M non-zeros, the scale of SNAP's com-LiveJournal)
+            and a random pattern of 20 entries per row (about 44 M), both
+            infeasible for the windowed paths, on the nnz-split chunks
+            (K9-K12).
 
 Each path's two matrices are served by one ``SpmvServingEngine`` and solved
 by ``cg_solve`` / ``bicgstab``.  Answers are checked against a float64
 ``scipy.sparse`` product built from the same COO data and against the
-port's own ``segment`` path.
+port's own ``segment`` path.  A last phase serves one 2-D Poisson matrix
+(``--n``/8 rows: 512 x 512 at the default size) through the paper's two
+strategies side by side —
+row coloring (the ``colorful`` path, torch ops) and the local-buffer
+windows of the ``kernel`` path — and solves it by CG on the colorful one.
 
 Every phase prints one JSON line.  Before the last line come one JSON
 object ``{"kernels": [...]}`` (per kernel: launches on its path's main run,
@@ -34,6 +44,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import math
 import os
 import sys
 import time
@@ -49,7 +60,13 @@ FILL = 0.6
 SKEW_WIDE = 512       # half-band of the wide rows of the skewed matrices
 SKEW_NARROW = 3       # half-band of the other rows
 SKEW_WIDE_FRAC = 0.06
+PL_ATTACH = 16        # edges each vertex draws: mean degree 32
+PL_ALPHA = 0.5        # attachment weight (rank)^-alpha: degrees ~ k^-3
+RAND_PER_ROW = 20     # stored entries per row of the random pattern
 TOL = 1e-5            # of the row's absolute sum: float32 sums in any order
+# build counters a same-structure value refresh must leave untouched
+STRUCTURAL_BUILDS = ("pack", "flat_pack", "nnzsplit_pack", "coloring",
+                     "partition")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
 FP32_FLOPS = 67e12             # H100 SXM, float32 outside the tensor cores
 
@@ -139,6 +156,130 @@ def skew_arrays(n, wide, narrow, seed, symmetric, fill=1.0, dyadic=False,
     return ia, ja.astype(np.int32), ad, al, au
 
 
+def _lower_from_pairs(n, hi, lo):
+    """Row-major lower slots (ia, ja) of the distinct pairs hi > lo."""
+    key = np.unique(hi.astype(np.int64) * n + lo)
+    ros, ja = np.divmod(key, n)
+    ia = np.zeros(n + 1, dtype=np.int32)
+    np.cumsum(np.bincount(ros, minlength=n), out=ia[1:])
+    return ia, ja.astype(np.int32), ros
+
+
+def _dyadic_values(rng, k):
+    return (rng.integers(-8, 9, size=k) / 4.0).astype(np.float32)
+
+
+def powerlaw_arrays(n, seed, attach=PL_ATTACH, dyadic=False,
+                    general=False):
+    """A matrix of the class of ``csrc.powerlaw_laplacian``: every vertex
+    draws ``attach`` neighbours with probability proportional to a
+    power-law weight, labels shuffled, so degrees have a heavy tail (hub
+    rows) and ``ja`` spreads over all of n.  Off-diagonals -1 and diagonal
+    2·degree + 1 (integers, symmetric, strictly diagonally dominant: SPD,
+    Jacobi spectrum in (0.5, 1.5)); ``general`` draws symmetric standard
+    normal off-diagonals with diagonal 1 + 2·(absolute row sum), ``dyadic``
+    multiples of 1/4.  Returns (ia, ja, ad, al, au)."""
+    rng = np.random.default_rng(seed)
+    label = rng.permutation(n)
+    src = np.repeat(np.arange(n, dtype=np.int64), attach)
+    # inverse of the continuous CDF of rank^-alpha on [1, n]: one draw per
+    # edge in closed form (a search of a 2 M-entry CDF per draw is slow)
+    e = 1.0 - PL_ALPHA
+    u = rng.random(src.shape[0])
+    rank = (1.0 + u * (n ** e - 1.0)) ** (1.0 / e)
+    dst = label[np.minimum(rank.astype(np.int64), n) - 1]
+    keep = src != dst
+    src, dst = src[keep], dst[keep]
+    ia, ja, ros = _lower_from_pairs(n, np.maximum(src, dst),
+                                    np.minimum(src, dst))
+    k = ja.shape[0]
+    if general or dyadic:
+        al = (_dyadic_values(rng, k) if dyadic
+              else rng.standard_normal(k, dtype=np.float32))
+        absum = (np.bincount(ros, np.abs(al), minlength=n)
+                 + np.bincount(ja, np.abs(al), minlength=n))
+        ad = (1.0 + 2.0 * absum).astype(np.float32)
+        return ia, ja, ad, al, al
+    deg = np.bincount(ros, minlength=n) + np.bincount(ja, minlength=n)
+    al = -np.ones(k, dtype=np.float32)
+    return ia, ja, (2.0 * deg + 1.0).astype(np.float32), al, al
+
+
+def random_arrays(n, seed, per_row=RAND_PER_ROW, dyadic=False,
+                  empty_rows=None):
+    """A matrix of the class of ``csrc.random_symmetric_pattern`` (the
+    cage15 / F1 kind): n·per_row/2 lower entries at uniform rows, each at a
+    uniform column below its row; independent standard normal (or dyadic)
+    al / au and diagonal 1 + 2·(absolute row sum).  Returns (ia, ja, ad,
+    al, au)."""
+    rng = np.random.default_rng(seed)
+    k = n * per_row // 2
+    r = rng.integers(1, n, size=k, dtype=np.int64)
+    c = (rng.random(k) * r).astype(np.int64)
+    if empty_rows is not None:
+        gone = np.zeros(n, dtype=bool)
+        gone[empty_rows] = True
+        keep = ~(gone[r] | gone[c])
+        r, c = r[keep], c[keep]
+    ia, ja, ros = _lower_from_pairs(n, r, c)
+    k = ja.shape[0]
+
+    def values():
+        if dyadic:
+            return _dyadic_values(rng, k)
+        return rng.standard_normal(k, dtype=np.float32)
+
+    al, au = values(), values()
+    absum = (np.bincount(ros, np.abs(al), minlength=n)
+             + np.bincount(ja, np.abs(au), minlength=n))
+    return ia, ja, (1.0 + 2.0 * absum).astype(np.float32), al, au
+
+
+def star_arrays(n, seed):
+    """A star graph's centre (row 0, adjacent to every other row) over a
+    sparse random background: the hub row spans several chunks.  Dyadic
+    values."""
+    rng = np.random.default_rng(seed)
+    leaves = np.arange(1, n, dtype=np.int64)
+    r = rng.integers(1, n, size=2 * n, dtype=np.int64)
+    c = (rng.random(2 * n) * r).astype(np.int64)
+    hi = np.concatenate([leaves, np.maximum(r, c + 1)])
+    lo = np.concatenate([np.zeros(n - 1, np.int64), np.minimum(c, r - 1)])
+    ia, ja, ros = _lower_from_pairs(n, hi, lo)
+    al = _dyadic_values(rng, ja.shape[0])
+    au = _dyadic_values(rng, ja.shape[0])
+    return ia, ja, np.full(n, 4.0, dtype=np.float32), al, au
+
+
+def gap_arrays(seed, gap=3999, width=600):
+    """Two dense rows ``gap`` apart with only empty rows between them
+    (their ``width`` neighbours each lie just past the second): the first
+    chunk holds both and spans gap + 1 rows, so r_pad reaches 4096.
+    Dyadic values."""
+    n = gap + 1 + 2 * width + 128
+    hi = gap + 1 + np.arange(2 * width, dtype=np.int64)
+    lo = np.concatenate([np.zeros(width, np.int64),
+                         np.full(width, gap, np.int64)])
+    ia, ja, _ = _lower_from_pairs(n, hi, lo)
+    rng = np.random.default_rng(seed)
+    al = _dyadic_values(rng, ja.shape[0])
+    au = _dyadic_values(rng, ja.shape[0])
+    return ia, ja, np.full(n, 2.0, dtype=np.float32), al, au
+
+
+def poisson_arrays(side):
+    """The 5-point Laplacian on a side x side grid, the class of
+    ``csrc.poisson2d``: diagonal 4, -1 to each grid neighbour (row-major
+    lower slots: the row above, then the left neighbour)."""
+    n = side * side
+    i = np.arange(n, dtype=np.int64)
+    hi = np.concatenate([i[i >= side], i[i % side > 0]])
+    lo = np.concatenate([i[i >= side] - side, i[i % side > 0] - 1])
+    ia, ja, _ = _lower_from_pairs(n, hi, lo)
+    al = -np.ones(ja.shape[0], dtype=np.float32)
+    return ia, ja, np.full(n, 4.0, dtype=np.float32), al, al
+
+
 def rect_estimate(M, tm=128, k_step=1024):
     """pad_ratio and streamed bytes the rectangular pack of ``M`` (float32
     values, int32 indices) would have, from its tile slot counts alone
@@ -194,6 +335,10 @@ def time_ms(fn) -> float:
 
 
 def abs_pack(pack):
+    from repro_torch.kernels.csrc_spmv_nnzsplit import NnzSplitPack
+    if isinstance(pack, NnzSplitPack):
+        return dataclasses.replace(pack, vals=pack.vals.abs(),
+                                   ad=pack.ad.abs())
     return dataclasses.replace(
         pack, vals_l=pack.vals_l.abs(),
         vals_u=pack.vals_l.abs() if pack.num_symmetric else pack.vals_u.abs(),
@@ -228,12 +373,30 @@ def phase_build(verbose: bool):
          compiled=info["compiled"], build_dir=_build.build_dir())
 
 
-def _window_runners(pack, ks):
+def _runners(pack, ks):
     """name -> (kernel wrapper, plain version), for x (n,) and X (n, B), of
-    a rectangular (K1-K4) or a flat (K5-K8) pack."""
+    a rectangular (K1-K4), a flat (K5-K8) or an nnz-split (K9-K12) pack.
+    The window kernels return (NT, W[, B]) windows, the chunk kernels
+    (C, r_pad[, B]) partials."""
     from repro_torch.kernels import csrc_spmm as mm
     from repro_torch.kernels import csrc_spmv as mv
     from repro_torch.kernels import csrc_spmv_flat as fl
+    from repro_torch.kernels import csrc_spmv_nnzsplit as nz
+    if isinstance(pack, nz.NnzSplitPack):
+        return {
+            "nnzsplit_spmv_stream": (
+                lambda x: nz.nnzsplit_spmv_stream_cuda(pack, x),
+                lambda x: nz.nnzsplit_partials_stream_plain(pack, x)),
+            "nnzsplit_spmv_onehot": (
+                lambda x: nz.nnzsplit_spmv_onehot_cuda(pack, x),
+                lambda x: nz.nnzsplit_partials_onehot_plain(pack, x)),
+            "nnzsplit_spmm_stream": (
+                lambda x: nz.nnzsplit_spmm_stream_cuda(pack, x),
+                lambda x: nz.nnzsplit_partials_stream_plain(pack, x)),
+            "nnzsplit_spmm_onehot": (
+                lambda x: nz.nnzsplit_spmm_onehot_cuda(pack, x),
+                lambda x: nz.nnzsplit_partials_onehot_plain(pack, x)),
+        }
     if isinstance(pack, fl.FlatBlockEll):
         return {
             "flat_spmv_stream": (
@@ -284,7 +447,7 @@ def _compare(name, kernel, plain, x, exact, abs_plain=None):
         check(bool(((got - want).abs() <= bound).all()),
               f"{name}: exceeds {TOL} of the row's absolute sum "
               f"(max abs err {err})")
-    if "onehot" in name:      # K3, K4, K7, K8: a fixed order of additions
+    if "onehot" in name:      # K3, K4, K7, K8, K11, K12: a fixed order
         check(torch.equal(got, kernel(x)),
               f"{name}: two runs on the same input differ")
     return err
@@ -358,8 +521,8 @@ def phase_kernels(seed: int):
                   f"{geometry['steps_per_tile']}")
         if "w4096" in name:
             check(pack.w_pad == 4096, f"{name}: window {pack.w_pad}")
-        runners = _window_runners(pack, ks)
-        abs_runners = _window_runners(abs_pack(pack), ks)
+        runners = _runners(pack, ks)
+        abs_runners = _runners(abs_pack(pack), ks)
         errs = {}
         for width in widths:
             shape = (n,) if width == 1 else (n, width)
@@ -378,12 +541,84 @@ def phase_kernels(seed: int):
                        "exact": dyadic, "max_err": max(errs.values())})
         del pack, runners, abs_runners
         torch.cuda.empty_cache()
+    report += _nnzsplit_kernel_cases(seed, rng)
     emit("kernels", tolerance=f"exact on dyadic data, else {TOL} of the "
          "row's absolute sum", cases=report)
 
 
+def _nnzsplit_kernel_cases(seed, rng):
+    """K9-K12 against their plain versions on their (C, r_pad[, B])
+    partials (the fix-up adds in atomic order on the card, the partials do
+    not)."""
+    from repro_torch.core import csrc
+    from repro_torch.kernels import csrc_spmv_nnzsplit as nz
+    f32, bf16, i32, i16 = (torch.float32, torch.bfloat16, torch.int32,
+                           torch.int16)
+    cases = [
+        # name, arrays(seed), dtype, idx, ks, Bs, dyadic
+        ("nz_f32_i32_ns_dyadic",
+         lambda sd: random_arrays(3000, sd, dyadic=True),
+         f32, i32, 8, (1, 3, 8, 64), True),
+        ("nz_bf16_i16_sym_dyadic",
+         lambda sd: powerlaw_arrays(20000, sd, dyadic=True),
+         bf16, i16, 8, (1, 3, 8), True),
+        ("nz_f32_i16_ns_empty_rows",
+         lambda sd: random_arrays(2500, sd, dyadic=True,
+                                  empty_rows=slice(700, 1100)),
+         f32, i16, 1, (1, 8), True),
+        ("nz_f32_i32_sym_general",
+         lambda sd: powerlaw_arrays(5000, sd, general=True),
+         f32, i32, 8, (1, 8), False),
+        ("nz_f32_i32_ns_general", lambda sd: random_arrays(3001, sd),
+         f32, i32, 1, (1, 3), False),
+        # a star graph's centre: one row over several chunks
+        ("nz_star_hub", lambda sd: star_arrays(5000, sd),
+         f32, i32, 8, (1, 11), True),
+        # two dense rows 3,999 apart in one chunk: r_pad = 4096
+        ("nz_r_pad_4096", gap_arrays, f32, i32, 8, (1, 3, 8), True),
+        # the power-law main path's geometry at 1/32 size
+        ("nz_powerlaw_main_geometry",
+         lambda sd: powerlaw_arrays(65536, sd, dyadic=True),
+         f32, i32, 8, (1, 11), True),
+    ]
+    report = []
+    for name, make, vdt, idt, ks, widths, dyadic in cases:
+        arrays = make(seed + 50 + len(report))
+        n = arrays[0].shape[0] - 1
+        M = csrc.from_assembly(n, *arrays)
+        pack = nz.pack_nnzsplit(M, ks=ks, dtype=vdt,
+                                index_dtype=idt).to("cuda")
+        hub_chunks = int(torch.bincount(pack.chunk_row0.long()).max())
+        if "r_pad_4096" in name:
+            check(pack.r_pad == 4096, f"{name}: r_pad {pack.r_pad}")
+        if "hub" in name:
+            check(hub_chunks > 1, f"{name}: the hub row fills one chunk")
+        runners = _runners(pack, ks)
+        abs_runners = _runners(abs_pack(pack), ks)
+        errs = {}
+        for width in widths:
+            shape = (n,) if width == 1 else (n, width)
+            x_np = (dyadic_vector(rng, shape) if dyadic
+                    else rng.standard_normal(shape, dtype=np.float32))
+            x = torch.from_numpy(x_np).cuda()
+            for kname, (kernel, plain) in runners.items():
+                if ("spmv" in kname) != (width == 1):
+                    continue
+                errs[f"{kname}/B{width}"] = _compare(
+                    f"{name}/{kname}/B{width}", kernel, plain, x,
+                    exact=dyadic, abs_plain=abs_runners[kname][1])
+        report.append({"case": name, "n": n, "ks": ks,
+                       "num_chunks": pack.num_chunks, "r_pad": pack.r_pad,
+                       "chunks_of_largest_row": hub_chunks,
+                       "pad_ratio": round(pack.pad_ratio, 4),
+                       "exact": dyadic, "max_err": max(errs.values())})
+        del pack, runners, abs_runners
+        torch.cuda.empty_cache()
+    return report
+
+
 def path_specs(n: int, seed: int):
-    """The two main-path runs: per path, its matrices, the plan each is
+    """The three main-path runs: per path, its matrices, the plan each is
     registered with (None: the default heuristic plan), the (path,
     variant) each must run, which matrix is refreshed and solved by CG
     (symmetric) and by BiCGSTAB, and where each of its kernels is timed."""
@@ -391,6 +626,8 @@ def path_specs(n: int, seed: int):
     kernel_stream = ExecutionPlan(path="kernel", variant="stream")
     flat_stream = ExecutionPlan(path="flat", variant="stream")
     flat_onehot = ExecutionPlan(path="flat", variant="onehot")
+    nz_stream = ExecutionPlan(path="nnzsplit", variant="stream")
+    nz_onehot = ExecutionPlan(path="nnzsplit", variant="onehot")
     return [
         {"name": "kernel",
          "matrices": {
@@ -420,7 +657,41 @@ def path_specs(n: int, seed: int):
                      "flat_spmm_stream": ("skew_sym", 11),
                      "flat_spmv_onehot": ("skew_ns", 1),
                      "flat_spmm_onehot": ("skew_ns", 11)}},
+        {"name": "nnzsplit",
+         "matrices": {
+             "pl_sym": lambda: powerlaw_arrays(n, seed + 300),
+             "rand_ns": lambda: random_arrays(n, seed + 301)},
+         "plans": {"pl_sym": nz_stream, "rand_ns": nz_onehot},
+         "expect": {"pl_sym": ("nnzsplit", "stream"),
+                    "rand_ns": ("nnzsplit", "onehot")},
+         "sym": "pl_sym", "ns": "rand_ns", "unstructured": True,
+         "kernels": {"nnzsplit_spmv_stream": ("pl_sym", 1),
+                     "nnzsplit_spmm_stream": ("pl_sym", 11),
+                     "nnzsplit_spmv_onehot": ("rand_ns", 1),
+                     "nnzsplit_spmm_onehot": ("rand_ns", 11)}},
     ]
+
+
+def unstructured_gate(M):
+    """Assert what makes ``M`` a matrix for the nnzsplit path: the tuner's
+    gate passes, and both windowed paths are infeasible (the window of a
+    128-row tile exceeds w_cap)."""
+    from repro_torch.core import tuner
+    from repro_torch.core.paths import nnzsplit_worth_measuring
+    from repro_torch.core.plan import ExecutionPlan, feasible, kernel_window
+    st = tuner.stats_of(M)
+    window = kernel_window(128, st.bandwidth)
+    check(nnzsplit_worth_measuring(st), "nnzsplit gate refuses the matrix")
+    for path in ("kernel", "flat"):
+        check(not feasible(ExecutionPlan(path=path), n=st.n, m=st.m,
+                           bandwidth=st.bandwidth),
+              f"the {path} path could window this matrix ({window})")
+    return {"bandwidth": st.bandwidth, "window": window,
+            "w_cap": ExecutionPlan().w_cap,
+            "nnz_row_cov": round(st.nnz_row_dev / st.nnz_row_mean, 3),
+            "max_row_nnz": int(np.max(np.diff(M.ia.numpy())
+                                      + np.bincount(M.ja.numpy(),
+                                                    minlength=M.n)) + 1)}
 
 
 class Workload:
@@ -438,6 +709,8 @@ class Workload:
             self.arrays[mid] = arr
             self.M[mid] = csrc.from_assembly(n, *arr)
         self.construct_s = time.perf_counter() - t0
+        self.gates = ({mid: unstructured_gate(M) for mid, M in self.M.items()}
+                      if spec.get("unstructured") else None)
         t0 = time.perf_counter()
         for mid, arr in self.arrays.items():
             self.csr[mid] = scipy_csr(n, *arr)
@@ -472,6 +745,13 @@ class Workload:
 
 def _pack_report(M, pack):
     from repro_torch.kernels.csrc_spmv_flat import FlatBlockEll
+    from repro_torch.kernels.csrc_spmv_nnzsplit import NnzSplitPack
+    if isinstance(pack, NnzSplitPack):
+        return {"num_chunks": pack.num_chunks, "ks": pack.ks,
+                "r_pad": pack.r_pad, "pad_ratio": round(pack.pad_ratio, 4),
+                "chunks_of_largest_row": int(torch.bincount(
+                    pack.chunk_row0.long()).max()),
+                "streamed_bytes": pack.streamed_bytes()}
     out = {"nt": pack.nt, "w_pad": pack.w_pad,
            "pad_ratio": round(pack.pad_ratio, 4),
            "streamed_bytes": pack.streamed_bytes()}
@@ -513,11 +793,8 @@ def phase_serve(work: Workload, spec):
                   f"{mid}: explicit plan not honoured")
     segment = {mid: SpmvOperator(work.M[mid], path="segment")
                for mid in mids}
-    segment_abs = {}
-    for mid, (ia, ja, ad, al, au) in work.arrays.items():
-        segment_abs[mid] = SpmvOperator(
-            csrc.from_assembly(work.n, ia, ja, np.abs(ad), np.abs(al),
-                               np.abs(au)), path="segment")
+    segment_abs = {mid: SpmvOperator(csrc_abs(work.n, *arr), path="segment")
+                   for mid, arr in work.arrays.items()}
 
     n = work.n
     # 24 requests over both matrices, in two waves: a wave of 11 + 11 is
@@ -570,8 +847,8 @@ def phase_serve(work: Workload, spec):
     uid = eng.submit(sym, x)
     out = eng.run_until_drained()
     delta = {k: v - before.get(k, 0) for k, v in BUILD_COUNTS.items()}
-    check(delta.get("value_refresh") == 1 and not delta.get("pack")
-          and not delta.get("flat_pack") and not delta.get("partition"),
+    check(delta.get("value_refresh") == 1
+          and not any(delta.get(k) for k in STRUCTURAL_BUILDS),
           f"value refresh rebuilt structure: {delta}")
     seg_t = SpmvOperator(M_t, path="segment")
     work.check_answers(csr_t, x[:, None], np.asarray(out[uid])[:, None],
@@ -588,7 +865,8 @@ def phase_serve(work: Workload, spec):
          plans={mid: plan.key() for mid, plan in plans.items()},
          pack={mid: _pack_report(work.M[mid], eng.executor(mid).op.pack)
                for mid in mids},
-         build_counts=dict(BUILD_COUNTS.items()), waves=waves)
+         build_counts=dict(BUILD_COUNTS.items()), waves=waves,
+         **({"unstructured": work.gates} if work.gates else {}))
     return eng
 
 
@@ -643,8 +921,8 @@ def phase_path_kernels(work: Workload, eng, spec, launches):
         x = torch.from_numpy(
             work.rng.standard_normal(shape, dtype=np.float32)).cuda()
         pack = eng.executor(mid).op.pack
-        kernel, plain = _window_runners(pack, ks)[kname]
-        abs_plain = _window_runners(abs_pack(pack), ks)[kname][1]
+        kernel, plain = _runners(pack, ks)[kname]
+        abs_plain = _runners(abs_pack(pack), ks)[kname][1]
         err = _compare(f"path/{kname}", kernel, plain, x, exact=False,
                        abs_plain=abs_plain)
         csr = work.csr[mid]
@@ -657,8 +935,18 @@ def phase_path_kernels(work: Workload, eng, spec, launches):
         plain_ms = time_ms(lambda: plain(x))
         library_ms = time_ms(lambda: lib @ x)
         del lib
-        bytes_moved = pack.streamed_bytes(nrhs)
-        flops = (2 * work.M[mid].nnz - n) * nrhs
+        extra = {}
+        if kname.startswith("nnzsplit"):
+            # the kernel's own work: its streams read once, its partials
+            # written once, x read once; one multiply-add per real entry
+            bytes_moved = sum(a.numel() * a.element_size()
+                              for a in (pack.vals, pack.lrow, pack.src))
+            bytes_moved += (pack.num_chunks * pack.r_pad + n) * 4 * nrhs
+            flops = 2 * (2 * work.M[mid].k) * nrhs
+            extra["product_streamed_bytes"] = pack.streamed_bytes(nrhs)
+        else:
+            bytes_moved = pack.streamed_bytes(nrhs)
+            flops = (2 * work.M[mid].nnz - n) * nrhs
         t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
         t_ops = flops / FP32_FLOPS * 1e3
         k = _build.KERNELS[kname]
@@ -671,10 +959,98 @@ def phase_path_kernels(work: Workload, eng, spec, launches):
             "library_ms": library_ms,
             "shape": {"matrix": mid, "nrhs": nrhs, **_pack_report(
                 work.M[mid], pack)},
-            "bytes": bytes_moved, "flops": flops})
+            "bytes": bytes_moved, "flops": flops, **extra})
         del x
         torch.cuda.empty_cache()
     return rows
+
+
+def phase_colorful(side: int, seed: int):
+    """The paper's two strategies on one 2-D Poisson matrix: row coloring
+    (``colorful``: one ``index_add_`` pair per color) and the local-buffer
+    windows of the ``kernel`` path (K1/K2), registered side by side in one
+    engine and served the same waves; then CG on the colorful one."""
+    from repro_torch import obs
+    from repro_torch.core import solvers
+    from repro_torch.core.coloring import balance_stats, verify_coloring
+    from repro_torch.core.plan import ExecutionPlan
+    from repro_torch.kernels.ops import SpmvOperator
+    from repro_torch.serve import SpmvServingEngine
+
+    n = side * side
+    spec = {"matrices": {"p2d": lambda: poisson_arrays(side)}}
+    work = Workload(n, seed, spec)
+    M = work.M["p2d"]
+    plans = {"p2d_colorful": ExecutionPlan(path="colorful"),
+             "p2d_kernel": ExecutionPlan(path="kernel", variant="stream")}
+    eng = SpmvServingEngine()
+    register_s, spans = {}, {}
+    for mid, plan in plans.items():
+        obs.clear_trace()
+        t0 = time.perf_counter()
+        got = eng.register(mid, M, plan=plan)
+        register_s[mid] = round(time.perf_counter() - t0, 3)
+        check(got.key() == plan.key(), f"{mid}: plan is {got.key()}")
+        spans[mid] = {rec["name"]: round(rec["duration_s"], 3)
+                      for rec in obs.trace()
+                      if rec["name"].startswith("schedule.")}
+    col = eng.executor("p2d_colorful").op.schedule.coloring
+    check(verify_coloring(M, col), "the coloring has a write conflict")
+    ia, ja, ad, al, au = work.arrays["p2d"]
+    segment = SpmvOperator(M, path="segment")
+    segment_abs = SpmvOperator(csrc_abs(n, ia, ja, ad, al, au),
+                               path="segment")
+    waves = []
+    for per_matrix in (11, 1):
+        xs = [work.rng.standard_normal(n, dtype=np.float32)
+              for _ in range(per_matrix)]
+        sent = {mid: [eng.submit(mid, x) for x in xs] for mid in plans}
+        t_tick = time.perf_counter()
+        out = eng.run_until_drained()
+        tick_s = time.perf_counter() - t_tick
+        wave = {"requests_per_matrix": per_matrix, "tick_s": round(tick_s, 4)}
+        X = np.stack(xs, axis=1)
+        for mid, uids in sent.items():
+            check(all(out[u].batched == per_matrix
+                      and out[u].path == plans[mid].path for u in uids),
+                  f"{mid}: result metadata wrong")
+            Y = np.stack([np.asarray(out[u]) for u in uids], axis=1)
+            errs = work.check_answers(work.csr["p2d"], X, Y, segment,
+                                      segment_abs, f"serve {mid} "
+                                      f"B={per_matrix}")
+            wave[mid] = {"execute_s": out[uids[0]].timings["execute_s"],
+                         "err_vs_float64": errs[0],
+                         "err_vs_segment": errs[1]}
+        waves.append(wave)
+
+    b = work.rng.standard_normal((n, 8), dtype=np.float32)
+    t0 = time.perf_counter()
+    res, op = solvers.cg_solve(M, torch.from_numpy(b), cache=eng.cache,
+                               plan=plans["p2d_colorful"], tol=1e-6,
+                               maxiter=4000)
+    torch.cuda.synchronize()
+    cg_s = time.perf_counter() - t0
+    check(res.converged and op.path == "colorful",
+          f"colorful cg did not converge: {res.residual}")
+    x = res.x.cpu().numpy().astype(np.float64)
+    r = b - work.csr["p2d"] @ x
+    true = float(np.max(np.linalg.norm(r, axis=0)
+                        / np.linalg.norm(b, axis=0)))
+    # float32 CG on this matrix (condition number ~1e5) stalls near a
+    # 1e-4 true residual while its recurrence reaches 1e-6
+    check(true <= 1e-3, f"colorful cg true residual {true}")
+    emit("colorful", n=n, grid=side, nnz=int(M.nnz),
+         num_colors=int(col.num_colors), provider=col.provider,
+         balance=balance_stats(col), register_s=register_s,
+         register_spans_s=spans, plans={m: p.key() for m, p in plans.items()},
+         waves=waves,
+         cg={"nrhs": 8, "iters": res.iters, "residual": res.residual,
+             "true_residual": true, "seconds": round(cg_s, 4)})
+
+
+def csrc_abs(n, ia, ja, ad, al, au):
+    from repro_torch.core import csrc
+    return csrc.from_assembly(n, ia, ja, np.abs(ad), np.abs(al), np.abs(au))
 
 
 def main() -> int:
@@ -693,7 +1069,8 @@ def main() -> int:
     from repro_torch import device as device_mod
     from repro_torch.kernels import _build
     from repro_torch.kernels import (csrc_spmm, csrc_spmv,  # noqa: F401
-                                     csrc_spmv_flat)        # (register)
+                                     csrc_spmv_flat,        # (register)
+                                     csrc_spmv_nnzsplit)
 
     torch.manual_seed(args.seed)
     card = phase_env()
@@ -722,6 +1099,9 @@ def main() -> int:
         torch.cuda.empty_cache()
     for name in _build.KERNELS:
         check(name in launches, f"kernel {name} is on no main path")
+    t0 = time.perf_counter()
+    phase_colorful(int(round(math.sqrt(args.n / 8))), args.seed)
+    emit("colorful_phase", seconds=round(time.perf_counter() - t0, 3))
     emit("total", seconds=round(time.perf_counter() - t_start, 3))
 
     print(json.dumps({"kernels": rows}), flush=True)

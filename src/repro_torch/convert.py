@@ -87,6 +87,56 @@ def flat_from_arrays(*, n: int, tm: int, nt: int, w_pad: int,
         num_symmetric=bool(num_symmetric), pad_ratio=float(pad_ratio))
 
 
+def nnzsplit_from_arrays(*, n: int, num_chunks: int, ks: int, r_pad: int,
+                         vals, lrow, src, chunk_row0, fixup_idx, ad,
+                         num_symmetric: bool, pad_ratio: float,
+                         value_dtype: str = "float32"):
+    """A :class:`~repro_torch.kernels.csrc_spmv_nnzsplit.NnzSplitPack` from
+    a foreign nnz-split pack.  ``vals`` / ``lrow`` arrive in the
+    ``(C, ks, 128)`` layout and ``src`` as ``(C·S,)`` (or any layout of the
+    same entries) and are stored as (C, S); values arrive as float32 and
+    are narrowed to ``value_dtype``; index streams keep their integer
+    dtype.  The streams are checked here (``lrow`` sorted inside each
+    chunk, indices in range, ``fixup_idx`` consistent): a malformed pack
+    raises ValueError."""
+    from repro_torch.kernels.csrc_spmv_nnzsplit import (NnzSplitPack,
+                                                        check_chunk_streams)
+    vdt = _VALUE_DTYPES[value_dtype]
+    shape = (int(num_chunks), int(ks) * 128)
+    lrow_t = _tensor(np.asarray(lrow).reshape(shape))
+    src_t = _tensor(np.asarray(src).reshape(shape))
+    if lrow_t.dtype != src_t.dtype:
+        raise ValueError(f"lrow is {lrow_t.dtype} but src is {src_t.dtype}")
+    row0 = _tensor(chunk_row0, np.int32)
+    fix = _tensor(fixup_idx, np.int32)
+    check_chunk_streams(lrow_t, src_t, row0, fix, n=int(n), r_pad=int(r_pad))
+    return NnzSplitPack(
+        n=int(n), num_chunks=int(num_chunks), ks=int(ks), r_pad=int(r_pad),
+        vals=_tensor(np.asarray(vals, np.float32).reshape(shape)).to(vdt),
+        lrow=lrow_t, src=src_t, chunk_row0=row0, fixup_idx=fix,
+        ad=_tensor(ad, np.float32).to(vdt),
+        num_symmetric=bool(num_symmetric), pad_ratio=float(pad_ratio))
+
+
+def coloring_from_arrays(*, color_of_row, num_colors: int, rows_by_color,
+                         color_ptr, provider: str = "greedy",
+                         level_of_row=None, group_of_row=None):
+    """A :class:`~repro_torch.core.coloring.Coloring` from a foreign one's
+    arrays (numpy, as the JAX package keeps them)."""
+    from repro_torch.core.coloring import PROVIDERS, Coloring
+    if provider not in PROVIDERS:
+        raise ValueError(f"unknown coloring provider {provider!r}")
+
+    def opt(a):
+        return None if a is None else np.asarray(a)
+    return Coloring(color_of_row=np.asarray(color_of_row),
+                    num_colors=int(num_colors),
+                    rows_by_color=np.asarray(rows_by_color),
+                    color_ptr=np.asarray(color_ptr), provider=provider,
+                    level_of_row=opt(level_of_row),
+                    group_of_row=opt(group_of_row))
+
+
 def plan_from_dict(d: Dict) -> ExecutionPlan:
     """An :class:`ExecutionPlan` from another plan's ``to_dict()``."""
     return ExecutionPlan.from_dict(dict(d))

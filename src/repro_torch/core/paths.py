@@ -20,11 +20,10 @@ operator stack needs to know about it:
 
 ``register_path`` wires the name into ``plan.PATHS`` (so ``ExecutionPlan``
 validation accepts it) and makes the path visible to the operator, the
-schedule layer and the tuner.  Registered here: ``segment``, ``kernel``
-and ``flat``.  The JAX package's ``colorful`` and ``nnzsplit`` entries (and
-the ``ShardSupport`` record of the mesh strategies, with the flat path's
-shard layouts) are not in this package yet; a plan naming one of those
-paths is refused with ``ValueError``.
+schedule layer and the tuner.  Registered here, in the JAX package's
+order: ``segment``, ``kernel``, ``colorful``, ``flat`` and ``nnzsplit``.
+The ``ShardSupport`` record of the mesh strategies (with the flat and
+nnz-split shard layouts) is not in this package yet.
 
 The executor factories receive the matrix and the schedule **already on
 the executor's device** (``SpmvOperator._bind`` moves them once) and
@@ -185,6 +184,10 @@ def registered_paths() -> Tuple[KernelPath, ...]:
 
 def _always_feasible(plan, *, n, m, bandwidth) -> bool:
     return True
+
+
+def _square_feasible(plan, *, n, m, bandwidth) -> bool:
+    return n == m
 
 
 def _windowed_feasible(plan, *, n, m, bandwidth) -> bool:
@@ -399,6 +402,113 @@ register_path(KernelPath(
 
 
 # ---------------------------------------------------------------------------
+# 'colorful' — the paper's §3.2 color-by-color writes (torch ops: the JAX
+# package has no Pallas body for this path)
+# ---------------------------------------------------------------------------
+
+def _colorful_candidates(stats, space):
+    if (stats.n != stats.m or stats.n > space.colorful_max_n
+            or stats.k == 0):
+        return []
+    return [ExecutionPlan(path="colorful", w_cap=space.w_cap,
+                          partition=space.partition,
+                          accumulation=space.accumulation,
+                          coloring=provider)
+            for provider in space.colorings]
+
+
+def _colorful_fields(plan) -> tuple:
+    # greedy and race colorings are different artifacts: the provider joins
+    # the schedule cache key so the two never collide
+    return (plan.coloring,)
+
+
+def _colorful_build(M, plan, coloring=None) -> dict:
+    from .coloring import color_rows
+    from . import schedule as schedule_mod
+    if not M.is_square:
+        raise ValueError(
+            "colorful path covers the square CSRC part only; "
+            "use 'segment' for rectangular matrices")
+    if coloring is None:
+        BUILD_COUNTS.inc("coloring")
+        col = color_rows(M, provider=plan.coloring)
+    else:
+        col = coloring
+    slots, ptr = schedule_mod.color_slot_batches(M, col)
+    return {"coloring": col, "color_slots": slots, "color_slot_ptr": ptr}
+
+
+def _colorful_save(sched):
+    col = sched.coloring
+    meta = {"num_colors": int(col.num_colors),
+            "coloring_provider": col.provider}
+    arrays = dict(
+        color_of_row=np.asarray(col.color_of_row),
+        rows_by_color=np.asarray(col.rows_by_color),
+        color_ptr=np.asarray(col.color_ptr),
+        color_slots=np.asarray(sched.color_slots),
+        color_slot_ptr=np.asarray(sched.color_slot_ptr),
+    )
+    # RACE level-group metadata rides along so a loaded schedule keeps the
+    # chunk-aware conflict invariant verifiable without re-coloring
+    if col.level_of_row is not None:
+        arrays["color_level_of_row"] = np.asarray(col.level_of_row)
+    if col.group_of_row is not None:
+        arrays["color_group_of_row"] = np.asarray(col.group_of_row)
+    return meta, arrays
+
+
+def _colorful_load(meta, z) -> dict:
+    from repro_torch.convert import coloring_from_arrays
+    files = getattr(z, "files", z)
+    return {
+        "coloring": coloring_from_arrays(
+            color_of_row=z["color_of_row"],
+            num_colors=int(meta["num_colors"]),
+            rows_by_color=z["rows_by_color"],
+            color_ptr=z["color_ptr"],
+            provider=meta.get("coloring_provider", "greedy"),
+            level_of_row=(z["color_level_of_row"]
+                          if "color_level_of_row" in files else None),
+            group_of_row=(z["color_group_of_row"]
+                          if "color_group_of_row" in files else None)),
+        "color_slots": z["color_slots"],
+        "color_slot_ptr": z["color_slot_ptr"],
+    }
+
+
+def _colorful_make(M, schedule, plan, *, coloring=None):
+    """The color loop bound to ``M``'s device: the slot batches and the row
+    of each slot go up once, here, never per call."""
+    from . import schedule as schedule_mod
+    from .csrc import row_of_slot
+    slots, ptr = schedule.color_slots, schedule.color_slot_ptr
+    if coloring is not None and coloring is not schedule.coloring:
+        slots, ptr = schedule_mod.color_slot_batches(M, coloring)
+    dev = M.ad.device
+    return functools.partial(
+        schedule_mod.colorful_apply, M,
+        color_slots=torch.from_numpy(
+            np.asarray(slots, dtype=np.int64)).to(dev),
+        color_slot_ptr=np.asarray(ptr, dtype=np.int64),
+        row_idx=torch.from_numpy(row_of_slot(M).astype(np.int64)).to(dev))
+
+
+register_path(KernelPath(
+    name="colorful",
+    feasible=_square_feasible,
+    candidates=_colorful_candidates,
+    artifact_fields=_colorful_fields,
+    build_artifact=_colorful_build,
+    save_artifact=_colorful_save,
+    load_artifact=_colorful_load,
+    make_spmv=_colorful_make,
+    make_spmm=_colorful_make,       # colorful_apply handles (m,) and (m, r)
+))
+
+
+# ---------------------------------------------------------------------------
 # 'flat' — flat-grid block-ELL CUDA kernels (skewed row-length matrices)
 # ---------------------------------------------------------------------------
 
@@ -509,4 +619,155 @@ register_path(KernelPath(
     make_spmv=_flat_make_spmv,
     make_spmm=_flat_make_spmm,
     refresh_values=_flat_refresh,
+))
+
+
+# ---------------------------------------------------------------------------
+# 'nnzsplit' — equal-nnz chunks of the combined stream (unstructured
+# matrices), CUDA kernels K9-K12
+# ---------------------------------------------------------------------------
+
+# Candidate gates (the chunking is feasible on any square matrix; these only
+# gate *enumeration*):
+#  * skew: nnz-per-row CoV above this means even the flat grid's per-tile
+#    packing pays for hub rows (power-law degree tails).  Deliberately above
+#    FLAT_SKEW_MIN: in the moderate-skew band the flat path already wins.
+#  * spread: ``ja`` bandwidth above this fraction of n means the windowed
+#    packs pad a window comparable to the whole matrix (random graphs,
+#    circuits) — there is no band to exploit.
+NNZSPLIT_SKEW_MIN = 2.0
+NNZSPLIT_SPREAD_MIN = 0.25
+
+
+def nnzsplit_worth_measuring(stats) -> bool:
+    """The nnzsplit enumerator's gate: is the matrix unstructured enough
+    (heavy row-length tail OR non-banded column spread) that nnz-balanced
+    chunking could beat the windowed paths?"""
+    if stats.n != stats.m:
+        return False
+    cov = stats.nnz_row_dev / max(stats.nnz_row_mean, 1.0)
+    return (cov > NNZSPLIT_SKEW_MIN
+            or stats.bandwidth > NNZSPLIT_SPREAD_MIN * max(stats.n, 1))
+
+
+def _nnzsplit_feasible(plan, *, n, m, bandwidth) -> bool:
+    """Square matrices only; int16 gather indices additionally need every
+    global index (src into x) to fit.  The per-chunk row window is checked
+    at pack time against plan.w_cap (reused as the chunk-window cap) — it
+    depends on row-gap statistics, not on the bandwidth stat."""
+    if n != m:
+        return False
+    return plan.index_dtype != "int16" or n <= 32767
+
+
+def _nnzsplit_candidates(stats, space):
+    if not nnzsplit_worth_measuring(stats):
+        return []
+    out = []
+    for ks in space.nnzsplit_ks:
+        for idt in space.index_dtypes:
+            if idt == "int16" and stats.n > 32767:
+                continue        # gather index overflows 16 bits
+            for vdt in space.value_dtypes:
+                if (vdt == "bfloat16"
+                        and not stats.numerically_symmetric):
+                    continue
+                for var in space.variants:
+                    out.append(ExecutionPlan(
+                        path="nnzsplit", w_cap=space.w_cap,
+                        k_step_sublanes=ks, index_dtype=idt,
+                        value_dtype=vdt, variant=var,
+                        partition=space.partition,
+                        accumulation=space.accumulation))
+    return out
+
+
+def _nnzsplit_fields(plan) -> tuple:
+    # no tm: the chunking is row-independent; w_cap doubles as the
+    # per-chunk row-window cap
+    return (plan.k_step_sublanes, plan.w_cap, plan.index_dtype,
+            plan.value_dtype)
+
+
+def _nnzsplit_build(M, plan, coloring=None) -> dict:
+    from repro_torch.kernels import csrc_spmv_nnzsplit as nz_mod
+    if not M.is_square:
+        raise ValueError(
+            "nnzsplit path chunks the square CSRC part only; "
+            "use 'segment' for rectangular matrices")
+    BUILD_COUNTS.inc("nnzsplit_pack")
+    return {"nnzsplit_pack": nz_mod.pack_nnzsplit(
+        M, ks=plan.k_step_sublanes, r_cap=plan.w_cap,
+        dtype=_value_dtype_of(plan),
+        index_dtype=_index_dtype_of(plan))}
+
+
+def _nnzsplit_save(sched):
+    pk = sched.nnzsplit_pack
+    shape = (pk.num_chunks, pk.ks, 128)
+    # the JAX package's layout: (C, ks, 128) vals / lrow, a flat (C·S,)
+    # src, float32 values re-narrowed on load to the recorded dtype
+    meta = {"nnzsplit_pack": {
+        "n": pk.n, "num_chunks": pk.num_chunks, "ks": pk.ks,
+        "r_pad": pk.r_pad, "num_symmetric": bool(pk.num_symmetric),
+        "value_dtype": str(pk.vals.dtype).replace("torch.", ""),
+        "pad_ratio": pk.pad_ratio}}
+    arrays = dict(
+        nnzsplit_vals=_host_f32(pk.vals).reshape(shape),
+        nnzsplit_lrow=pk.lrow.detach().cpu().numpy().reshape(shape),
+        nnzsplit_src=pk.src.detach().cpu().numpy().reshape(-1),
+        nnzsplit_chunk_row0=pk.chunk_row0.detach().cpu().numpy(),
+        nnzsplit_fixup_idx=pk.fixup_idx.detach().cpu().numpy(),
+        nnzsplit_ad=_host_f32(pk.ad),
+    )
+    return meta, arrays
+
+
+def _nnzsplit_load(meta, z) -> dict:
+    from repro_torch.convert import nnzsplit_from_arrays
+    pm = meta["nnzsplit_pack"]
+    return {"nnzsplit_pack": nnzsplit_from_arrays(
+        n=pm["n"], num_chunks=pm["num_chunks"], ks=pm["ks"],
+        r_pad=pm["r_pad"], num_symmetric=bool(pm["num_symmetric"]),
+        pad_ratio=float(pm["pad_ratio"]),
+        value_dtype=pm.get("value_dtype", "float32"),
+        **{f: z["nnzsplit_" + f] for f in (
+            "vals", "lrow", "src", "chunk_row0", "fixup_idx", "ad")})}
+
+
+def _nnzsplit_refresh(M, sched) -> dict:
+    from repro_torch.kernels import csrc_spmv_nnzsplit as nz_mod
+    return {"nnzsplit_pack": nz_mod.refresh_nnzsplit_values(
+        sched.nnzsplit_pack, M)}
+
+
+def _nnzsplit_make_spmv(M, schedule, plan, *, coloring=None):
+    if plan.variant == "stream":
+        from repro_torch.kernels import csrc_spmv_stream as stream_mod
+        return functools.partial(stream_mod.nnzsplit_spmv_stream,
+                                 schedule.nnzsplit_pack)
+    from repro_torch.kernels import csrc_spmv_nnzsplit as nz_mod
+    return functools.partial(nz_mod.nnzsplit_spmv, schedule.nnzsplit_pack)
+
+
+def _nnzsplit_make_spmm(M, schedule, plan, *, coloring=None):
+    if plan.variant == "stream":
+        from repro_torch.kernels import csrc_spmv_stream as stream_mod
+        return functools.partial(stream_mod.nnzsplit_spmm_stream,
+                                 schedule.nnzsplit_pack)
+    from repro_torch.kernels import csrc_spmv_nnzsplit as nz_mod
+    return functools.partial(nz_mod.nnzsplit_spmm, schedule.nnzsplit_pack)
+
+
+register_path(KernelPath(
+    name="nnzsplit",
+    feasible=_nnzsplit_feasible,
+    candidates=_nnzsplit_candidates,
+    artifact_fields=_nnzsplit_fields,
+    build_artifact=_nnzsplit_build,
+    save_artifact=_nnzsplit_save,
+    load_artifact=_nnzsplit_load,
+    make_spmv=_nnzsplit_make_spmv,
+    make_spmm=_nnzsplit_make_spmm,
+    refresh_values=_nnzsplit_refresh,
 ))

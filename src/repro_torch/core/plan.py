@@ -14,9 +14,10 @@ cached, and shipped between processes instead of being hard-coded in
                                   (banded matrices)
                        'flat'     flat-grid block-ELL CUDA kernels
                                   (skewed row lengths)
+                       'nnzsplit' nnz-split CUDA kernels (unstructured
+                                  matrices)
+                       'colorful' color-by-color writes (paper §3.2)
                        'segment'  segment-sum torch path (any matrix)
-                     The JAX package's 'nnzsplit' and 'colorful' paths
-                     are not registered in this package yet.
                      New kernels add a name by registering a KernelPath —
                      not by editing this module.
   tm                 block-ELL row-tile height (kernel path)
@@ -237,7 +238,8 @@ def feasible(plan: ExecutionPlan, *, n: int, m: int, bandwidth: int) -> bool:
     * 'kernel' / 'flat' need a square matrix whose window fits under w_cap
       (the bandwidth gate — the packer cannot tile anything wider);
     * 'colorful' needs a square matrix (the color loop covers only the
-      structurally-symmetric part).
+      structurally-symmetric part);
+    * 'nnzsplit' needs a square matrix, and n <= 32767 for int16 indices.
     """
     from . import paths as paths_mod
     return paths_mod.get_path(plan.path).feasible(

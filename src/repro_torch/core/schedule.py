@@ -15,6 +15,9 @@ path re-ran the greedy colorer).  ``SpmvSchedule`` gives them one home:
                    the distributed 'halo' strategy's exchange windows)
   pack             the block-ELL pack for the ``kernel`` path
   flat_pack        the flat-grid pack for the ``flat`` path
+  nnzsplit_pack    the chunked combined stream for the ``nnzsplit`` path
+  coloring         the conflict-free row classes for the ``colorful`` path,
+                   with the per-color slot batches
 
 A schedule is built **once** per (matrix fingerprint, value digest, plan,
 partition width) and stored next to the plan in the tuner's
@@ -23,8 +26,8 @@ known matrix performs zero pack/partition/coloring work
 (``BUILD_COUNTS`` is the probe tests assert that with).
 
 Path-specific artifact contents (the block-ELL pack, the flat-grid pack,
-the coloring batches) are built and serialized by the path's
-:class:`~repro_torch.core.paths.KernelPath` registry entry — this module owns
+the nnz-split pack, the coloring batches) are built and serialized by the
+path's :class:`~repro_torch.core.paths.KernelPath` registry entry — this module owns
 the common pieces (partition, halo, fingerprinting, cache plumbing) and
 delegates the rest, so a newly registered path is schedule-cached with
 zero edits here.
@@ -43,10 +46,11 @@ import os
 from typing import Optional
 
 import numpy as np
+import torch
 
 from . import paths as paths_mod
 from .blockell import BlockEll
-from .csrc import CSRC, _np
+from .csrc import CSRC, _np, row_of_slot
 from .partition import (RowPartition, halo_widths, partition_rows_by_count,
                         partition_rows_by_nnz)
 # the build probe lives with the registry (the paths' build functions count into it);
@@ -94,10 +98,11 @@ class SpmvSchedule:
 
     def to(self, device) -> "SpmvSchedule":
         """The same schedule with its tensor-bearing artifacts (the
-        block-ELL or flat pack) on ``device``; partition and halo stay host
-        numpy."""
+        block-ELL, flat or nnz-split pack) on ``device``; partition, halo
+        and the coloring batches stay host numpy (the colorful executor
+        uploads its batches once, when it is bound)."""
         moved = {f: getattr(self, f).to(device)
-                 for f in ("pack", "flat_pack")
+                 for f in ("pack", "flat_pack", "nnzsplit_pack")
                  if getattr(self, f) is not None}
         if all(moved[f] is getattr(self, f) for f in moved):
             return self
@@ -208,6 +213,59 @@ def schedule_key(fingerprint: str, digest: str, plan: ExecutionPlan,
     ph = hashlib.sha1(json.dumps(plan_artifact_fields(plan)).encode()
                       ).hexdigest()[:10]
     return f"{fingerprint}.{digest}.p{p}.{ph}"
+
+
+def color_slot_batches(M: CSRC, coloring):
+    """Colorful batches: lower-triangle slot ids grouped by the color of
+    their owning row (the per-color gather/scatter index sets the colorful
+    path replays serially), rows in ``coloring.rows_by_color`` order and
+    each row's slots ascending.  Returns (slots int32, ptr int64) — the
+    JAX package's arrays, built without a per-row loop."""
+    ia = _np(M.ia).astype(np.int64)
+    rows = np.asarray(coloring.rows_by_color, dtype=np.int64)
+    counts = ia[rows + 1] - ia[rows]
+    total = int(counts.sum())
+    first = np.zeros(rows.shape[0] + 1, np.int64)
+    np.cumsum(counts, out=first[1:])
+    slots = (np.repeat(ia[rows] - first[:-1], counts)
+             + np.arange(total, dtype=np.int64)).astype(np.int32)
+    cptr = np.asarray(coloring.color_ptr, dtype=np.int64)
+    ptr = first[cptr].astype(np.int64)
+    return slots, ptr
+
+
+def colorful_apply(M: CSRC, x: torch.Tensor, color_slots, color_slot_ptr,
+                   row_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """y = A·x color by color over the schedule's slot batches: per color
+    one ``index_add_`` of ``al·x[ja]`` into the rows and one of
+    ``au·x[row]`` into the columns.
+
+    ``x`` may be (n,) or (n, r); inside one color every write target is
+    unique (greedy) or shared only inside one serial chunk (RACE), so the
+    adds are exact in any order on dyadic data.  ``color_slots`` may be a
+    numpy array or a tensor on ``x``'s device (a bound executor passes the
+    batches it uploaded once, and ``row_idx``, the row of each slot)."""
+    two_d = x.ndim == 2
+    dev = x.device
+    if row_idx is None:
+        row_idx = torch.from_numpy(row_of_slot(M)).to(dev)
+    slots = torch.as_tensor(color_slots, device=dev)
+    ptr = np.asarray(color_slot_ptr)
+    ad = M.ad[:, None] if two_d else M.ad
+    y = ad * x[:M.n]
+    for c in range(len(ptr) - 1):
+        lo, hi = int(ptr[c]), int(ptr[c + 1])
+        if hi == lo:
+            continue
+        sl = slots[lo:hi].long()
+        r = row_idx[sl].long()
+        j = M.ja[sl].long()
+        al, au = M.al[sl], M.au[sl]
+        if two_d:
+            al, au = al[:, None], au[:, None]
+        y.index_add_(0, r, al * x[j])
+        y.index_add_(0, j, au * x[r])
+    return y
 
 
 def build_schedule(M: CSRC, plan: ExecutionPlan, p: int = 8,

@@ -1,5 +1,5 @@
-"""Fused streaming forms of the block-ELL CSRC products (rectangular and
-flat grids).
+"""Fused streaming forms of the CSRC products: the block-ELL grids
+(rectangular and flat) and the nnz-split chunks.
 
 The same per-tile-window computation as the streaming kernels, evaluated
 as one fused expression over all (tile, slot) pairs: one gather + one
@@ -9,13 +9,16 @@ versions** of the streaming CUDA kernels (K1 in csrc_spmv.py, K2 in
 csrc_spmm.py, K5/K6 in csrc_spmv_flat.py): the CPU tests run them, and on
 the card the kernels are held against them.  The flat grid differs only in
 where a slot row's tile comes from: ``tile_of_step`` instead of the row
-index of the rectangular stream.
+index of the rectangular stream.  The nnz-split form (the plain version of
+K9/K10 in csrc_spmv_nnzsplit.py) is one gather and one segment sum over
+``chunk·r_pad + lrow`` into the (C, r_pad) partials.
 
-``blockell_spmv_stream`` / ``blockell_spmm_stream`` (``kernel`` path) and
-``flat_spmv_stream`` / ``flat_spmm_stream`` (``flat`` path) are the
-executors a ``variant='stream'`` plan binds.  They dispatch on where the
-tensor lives: a CUDA tensor launches K1/K2 or K5/K6, a CPU tensor takes the
-fused form.
+``blockell_spmv_stream`` / ``blockell_spmm_stream`` (``kernel`` path),
+``flat_spmv_stream`` / ``flat_spmm_stream`` (``flat`` path) and
+``nnzsplit_spmv_stream`` / ``nnzsplit_spmm_stream`` (``nnzsplit`` path) are
+the executors a ``variant='stream'`` plan binds.  They dispatch on where the
+tensor lives: a CUDA tensor launches K1/K2, K5/K6 or K9/K10, a CPU tensor
+takes the fused form.
 
 Sentinel discipline (shared with the packer): padded slots carry value 0
 and column sentinel ``w_pad``; the fused gather clamps the sentinel into
@@ -31,6 +34,7 @@ from repro_torch.core.blockell import BlockEll, pad_x
 from repro_torch.kernels import csrc_spmm as rect_mm_mod
 from repro_torch.kernels import csrc_spmv as rect_mod
 from repro_torch.kernels import csrc_spmv_flat as flat_mod
+from repro_torch.kernels import csrc_spmv_nnzsplit as nz_mod
 from repro_torch.kernels.ref import segment_sum
 
 
@@ -146,3 +150,26 @@ def flat_spmv_stream(pack, x: torch.Tensor) -> torch.Tensor:
 
 def flat_spmm_stream(pack, X: torch.Tensor) -> torch.Tensor:
     return flat_mod.flat_spmm(pack, X, variant="stream")
+
+
+def nnzsplit_partials_fused(pack, x: torch.Tensor) -> torch.Tensor:
+    """Per-chunk partials (C, r_pad) for x (n,), (C, r_pad, B) for x (n, B),
+    by the fused form: one gather of ``x[src]``, one segment sum over
+    ``chunk·r_pad + lrow`` — the plain version of K9 and K10."""
+    nc, r_pad = pack.num_chunks, pack.r_pad
+    x = x.to(torch.float32)
+    seg = (torch.arange(nc, dtype=torch.int64, device=x.device)[:, None]
+           * r_pad + pack.lrow.to(torch.int64)).reshape(-1)
+    xg = x[pack.src.reshape(-1).to(torch.int64)]
+    vals = pack.vals.reshape(-1).to(torch.float32)
+    c = vals[:, None] * xg if x.ndim == 2 else vals * xg
+    partial = segment_sum(c, seg, nc * r_pad)
+    return partial.reshape((nc, r_pad) + tuple(x.shape[1:]))
+
+
+def nnzsplit_spmv_stream(pack, x: torch.Tensor) -> torch.Tensor:
+    return nz_mod.nnzsplit_spmv(pack, x, variant="stream")
+
+
+def nnzsplit_spmm_stream(pack, X: torch.Tensor) -> torch.Tensor:
+    return nz_mod.nnzsplit_spmm(pack, X, variant="stream")

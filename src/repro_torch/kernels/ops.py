@@ -16,6 +16,11 @@ produce the SpMV and SpMM callables — this module contains no per-path
     banded enough to window;
   * 'flat'     flat-grid block-ELL CUDA kernels (per-tile-exact k-steps,
     for skewed row lengths; chosen only by an explicit plan);
+  * 'nnzsplit' nnz-split CUDA kernels over equal chunks of the combined
+    stream (unstructured matrices: power-law graphs, random patterns;
+    chosen only by an explicit plan);
+  * 'colorful' the paper's §3.2 row coloring, one ``index_add_`` pair per
+    color (chosen only by an explicit plan);
   * 'segment'  ``index_add_`` torch path (any matrix, incl. the
     rectangular tail).
 
@@ -51,7 +56,8 @@ class SpmvOperator:
 
     Builds (or fetches from ``cache``) the schedule once; call like a
     function with x of shape (m,) or (m, r) on the operator's device.
-    ``path`` is one of 'auto' | 'kernel' | 'flat' | 'segment'; or pass
+    ``path`` is 'auto' or a registered path ('kernel', 'flat', 'nnzsplit',
+    'colorful', 'segment'); or pass
     ``plan=`` / use :meth:`from_plan` to pin every degree of freedom.
     """
 
@@ -116,8 +122,10 @@ class SpmvOperator:
         self.M = M
         self.schedule = schedule
         bound = schedule.to(self.device)
-        # the windowed path's pack ('kernel' or 'flat'), None for 'segment'
-        self.pack = next((p for p in (bound.pack, bound.flat_pack)
+        # the path's pack ('kernel', 'flat' or 'nnzsplit'), None for
+        # 'segment' and 'colorful'
+        self.pack = next((p for p in (bound.pack, bound.flat_pack,
+                                      bound.nnzsplit_pack)
                           if p is not None), None)
         m_dev = M.to(self.device)
         self._fn = self._entry.make_spmv(m_dev, bound, self.plan,
@@ -173,12 +181,16 @@ def spmv(M: CSRC, x: torch.Tensor, path: str = "auto", device=None,
     return op(x.to(op.device))
 
 
-def spmv_transpose(M: CSRC, x: torch.Tensor) -> torch.Tensor:
-    """A^T·x — the paper's O(1) transpose (swap al/au); runs where ``M``
-    lives."""
-    return ref.csrc_spmv_transpose(M, x)
+def spmv_transpose(M: CSRC, x: torch.Tensor, device=None) -> torch.Tensor:
+    """A^T·x — the paper's O(1) transpose (swap al/au) through the segment
+    path on ``device`` (default: the card); ``M`` and ``x`` are moved
+    there."""
+    dev = device_mod.resolve(device)
+    return ref.csrc_spmv_transpose(M.to(dev), x.to(dev))
 
 
-def spmm(M: CSRC, X: torch.Tensor) -> torch.Tensor:
-    """Multi-RHS product through the segment path; runs where ``M`` lives."""
-    return ref.csrc_spmm(M, X)
+def spmm(M: CSRC, X: torch.Tensor, device=None) -> torch.Tensor:
+    """Multi-RHS product through the segment path on ``device`` (default:
+    the card); ``M`` and ``X`` are moved there."""
+    dev = device_mod.resolve(device)
+    return ref.csrc_spmm(M.to(dev), X.to(dev))

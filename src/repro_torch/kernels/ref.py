@@ -85,6 +85,17 @@ def csrc_spmv_transpose(M: CSRC, x):
                             False)
 
 
+def colorful_spmv(M: CSRC, x, coloring):
+    """The paper's colorful method: colors are processed serially; within a
+    color the write targets are disjoint, so each color's scatter is one
+    ``index_add_`` pair.  x of shape (n,) or (n, r).  The per-color slot
+    batches are normally precomputed once in the schedule artifact; this
+    wrapper derives them from ``coloring`` for ad-hoc use."""
+    from repro_torch.core.schedule import color_slot_batches, colorful_apply
+    slots, ptr = color_slot_batches(M, coloring)
+    return colorful_apply(M, x, slots, ptr)
+
+
 def csr_spmv_arrays(row_idx, ja, a, x, n: int):
     """Plain CSR product (the paper's baseline): y[i] += a[p] * x[ja[p]]."""
     return segment_sum(a * x[ja.long()], row_idx, n)

@@ -142,7 +142,7 @@ def test_transpose_product_and_numeric_symmetry_switch():
         np.asarray(jref.csrc_spmv_transpose(Mj, jnp.asarray(x))),
         tref.csrc_spmv_transpose(Mt, torch.from_numpy(x)).numpy())
     np.testing.assert_array_equal(
-        tops.spmv_transpose(Mt, torch.from_numpy(x)).numpy(),
+        tops.spmv_transpose(Mt, torch.from_numpy(x), device="cpu").numpy(),
         (jcsrc.to_dense(Mj).T.astype(np.float64) @ x).astype(np.float32))
     Ms = to_torch_csrc(dyadic(_both("fem_band_sym")[0]))
     np.testing.assert_array_equal(
@@ -163,5 +163,6 @@ def test_csr_baseline_equal():
     np.testing.assert_allclose(y.numpy(), tcsrc.to_dense(Mt) @ x,
                                rtol=1e-5, atol=1e-5)
     np.testing.assert_array_equal(
-        np32(tops.spmm(Mt, torch.from_numpy(dyadic_x(Mt.m, 2)))).shape,
+        np32(tops.spmm(Mt, torch.from_numpy(dyadic_x(Mt.m, 2)),
+                       device="cpu")).shape,
         (Mt.n, 2))

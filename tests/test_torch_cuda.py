@@ -1,4 +1,4 @@
-"""The CUDA kernels (K1-K8) against their plain versions, on the card.
+"""The CUDA kernels (K1-K12) against their plain versions, on the card.
 
 These tests need an NVIDIA GPU and ``nvcc`` and skip elsewhere (the check
 is made inside the fixture, never at import).  Run them on the card with
@@ -18,6 +18,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import csrc_spmm as mm
 from repro_torch.kernels import csrc_spmv as mv
 from repro_torch.kernels import csrc_spmv_flat as fl
+from repro_torch.kernels import csrc_spmv_nnzsplit as nz
 from repro_torch.kernels.ops import SpmvOperator
 
 pytestmark = pytest.mark.cuda
@@ -138,3 +139,66 @@ def test_flat_plan_on_the_card_launches_kernels_and_matches_segment(card):
         before = _build.launch_counts()[kernel]
         assert torch.equal(op(x.cuda()), want)
         assert _build.launch_counts()[kernel] == before + 1
+
+
+def _dyadic_powerlaw(n=3000, seed=0, symmetric=True):
+    """A power-law graph Laplacian (hub rows, labels shuffled) with dyadic
+    values; ``symmetric=False`` scales the upper half."""
+    import dataclasses
+    M = csrc.powerlaw_laplacian(n, attach=8, seed=seed)
+    if symmetric:
+        return M
+    return dataclasses.replace(M, au=0.5 * M.au, numerically_symmetric=False)
+
+
+@pytest.mark.parametrize("vdt,idt", [(torch.float32, torch.int32),
+                                     (torch.bfloat16, torch.int16)])
+@pytest.mark.parametrize("symmetric", [False, True])
+def test_nnzsplit_kernels_equal_plain_versions_on_dyadic_data(
+        card, vdt, idt, symmetric):
+    """K9-K12, each launched once, against their plain versions on the
+    (C, r_pad[, B]) partials; the one-hot kernels repeat bit for bit."""
+    M = _dyadic_powerlaw(symmetric=symmetric)
+    pack = nz.pack_nnzsplit(M, ks=2, dtype=vdt, index_dtype=idt).to(card)
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy((rng.integers(-8, 9, M.n) / 8).astype(np.float32)
+                         ).to(card)
+    X = torch.from_numpy((rng.integers(-8, 9, (M.n, 5)) / 8
+                          ).astype(np.float32)).to(card)
+    names = ("nnzsplit_spmv_stream", "nnzsplit_spmv_onehot",
+             "nnzsplit_spmm_stream", "nnzsplit_spmm_onehot")
+    before = _build.launch_counts()
+    assert torch.equal(nz.nnzsplit_spmv_stream_cuda(pack, x),
+                       nz.nnzsplit_partials_stream_plain(pack, x))
+    once = nz.nnzsplit_spmv_onehot_cuda(pack, x)
+    assert torch.equal(once, nz.nnzsplit_partials_onehot_plain(pack, x))
+    assert torch.equal(nz.nnzsplit_spmm_stream_cuda(pack, X),
+                       nz.nnzsplit_partials_stream_plain(pack, X))
+    assert torch.equal(nz.nnzsplit_spmm_onehot_cuda(pack, X),
+                       nz.nnzsplit_partials_onehot_plain(pack, X))
+    after = _build.launch_counts()
+    assert all(after[k] == before[k] + 1 for k in names)
+    assert torch.equal(once, nz.nnzsplit_spmv_onehot_cuda(pack, x))
+
+
+def test_nnzsplit_and_colorful_plans_on_the_card_match_segment(card):
+    """Both variants of an nnzsplit plan launch their kernel through
+    ``SpmvOperator``; a colorful plan answers on the card; all equal the
+    segment path on dyadic data."""
+    M = _dyadic_powerlaw(n=5000, symmetric=False)
+    x = torch.from_numpy((np.random.default_rng(4).integers(-8, 9, (M.n, 3))
+                          / 8).astype(np.float32))
+    want = SpmvOperator(M, path="segment")(x.cuda())
+    for variant, kernel in (("stream", "nnzsplit_spmm_stream"),
+                            ("onehot", "nnzsplit_spmm_onehot")):
+        op = SpmvOperator.from_plan(M, ExecutionPlan(path="nnzsplit",
+                                                     variant=variant))
+        assert isinstance(op.pack, nz.NnzSplitPack)
+        assert op.pack.device.type == "cuda"
+        before = _build.launch_counts()[kernel]
+        assert torch.equal(op(x.cuda()), want)
+        assert _build.launch_counts()[kernel] == before + 1
+    op = SpmvOperator.from_plan(M, ExecutionPlan(path="colorful"))
+    assert op.device.type == "cuda" and op.pack is None
+    assert torch.equal(op(x.cuda()), want)
+    assert torch.equal(op(x[:, 0].cuda()), want[:, 0])

@@ -41,6 +41,8 @@ def test_sources_found():
                  "src/repro_torch/kernels/csrc_spmm.py",
                  "src/repro_torch/kernels/csrc_spmv_stream.py",
                  "src/repro_torch/kernels/csrc_spmv_flat.py",
+                 "src/repro_torch/kernels/csrc_spmv_nnzsplit.py",
+                 "src/repro_torch/core/coloring.py",
                  "src/repro_torch/core/solvers.py",
                  "src/repro_torch/serve/engine.py",
                  "src/repro_torch/obs/provenance.py"):
@@ -79,7 +81,7 @@ def test_import_in_a_fresh_process_pulls_in_nothing_foreign():
     info = json.loads(out.stdout.strip().splitlines()[-1])
     assert not (set(info["roots"]) & (FORBIDDEN | {"triton"})), info["roots"]
     assert "torch" in info["roots"]
-    assert len(info["kernels"]) == 8 and not any(info["bound"])
+    assert len(info["kernels"]) == 12 and not any(info["bound"])
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():

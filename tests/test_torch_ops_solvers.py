@@ -107,6 +107,10 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
         tsolvers.cg_solve(Mt, x)
     with pytest.raises(RuntimeError, match="cuda"):
         tdevice.resolve(None)
+    with pytest.raises(RuntimeError, match="cuda"):
+        tops.spmm(Mt, x[:, None])
+    with pytest.raises(RuntimeError, match="cuda"):
+        tops.spmv_transpose(Mt, x)
     with pytest.raises(ValueError, match="unsupported"):
         tdevice.resolve("meta")
     assert tdevice.resolve("cpu") == torch.device("cpu")
@@ -114,11 +118,13 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
 
 
 def test_operator_refuses_what_is_not_ported_yet():
+    """Every local path is registered now; a mesh plan, a square-only path
+    on a rectangular matrix and a schedule of another plan are refused."""
     Mt = to_torch_csrc(MATRICES["fem_band"]())
-    with pytest.raises(ValueError, match="no kernel path 'colorful'"):
-        tops.SpmvOperator(Mt, path="colorful", device="cpu")
-    with pytest.raises(ValueError, match="nnzsplit"):
-        tops.SpmvOperator(Mt, path="nnzsplit", device="cpu")
+    rect = to_torch_csrc(jcsrc.rectangular_fem(40, 8, 6, seed=0))
+    for path in ("colorful", "nnzsplit", "flat", "kernel"):
+        with pytest.raises(ValueError, match="square"):
+            tops.SpmvOperator(rect, path=path, device="cpu")
     mesh = tplan.ExecutionPlan(path="segment", strategy="mesh", mesh_p=2)
     with pytest.raises(ValueError, match="local"):
         tops.SpmvOperator.from_plan(Mt, mesh, device="cpu")

@@ -50,10 +50,11 @@ def test_plan_key_dict_json_byte_identical(kw):
 
 
 def test_plan_validation_and_registry_names():
-    assert tplan.PATHS[:3] == ["kernel", "segment", "colorful"]
-    assert [p.name for p in tpaths.registered_paths()] == ["segment",
-                                                           "kernel", "flat"]
-    for bad in ({"path": "nnzsplit"}, {"tm": 0},
+    assert tplan.PATHS == ["kernel", "segment", "colorful", "flat",
+                           "nnzsplit"]
+    assert [p.name for p in tpaths.registered_paths()] == [
+        "segment", "kernel", "colorful", "flat", "nnzsplit"]
+    for bad in ({"path": "mxu"}, {"tm": 0},
                 {"variant": "mxu"}, {"index_dtype": "int8"},
                 {"strategy": "local", "mesh_p": 2}, {"partition": "rows"}):
         with pytest.raises(ValueError):
