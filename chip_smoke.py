@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed 0] [--n 2097152] [--verbose-build]
+    python3 chip_smoke.py [--seed 0] [--n 2097152] [--cubes 64 32 32]
+                          [--verbose-build]
 
-Builds the twelve CUDA kernels from the sources in this checkout, holds
-each against its plain PyTorch version on the card, then drives three of
+Builds the fourteen CUDA kernels from the sources in this checkout, holds
+each against its plain PyTorch version on the card, then drives four of
 the port's kernel paths through its public entry points at a size a
 deployment would call real, one after the other:
 
@@ -19,7 +20,17 @@ deployment would call real, one after the other:
             32, about 69 M non-zeros, the scale of SNAP's com-LiveJournal)
             and a random pattern of 20 entries per row (about 44 M), both
             infeasible for the windowed paths, on the nnz-split chunks
-            (K9-K12).
+            (K9-K12);
+  assembly  FEM assembly of a 3-D elasticity system: a 64 x 32 x 32-cube
+            block (``--cubes``) of Kuhn tetrahedra (393,216 elements, three
+            DOFs per node, 56.6 M element contributions per assembly),
+            schedule built
+            and cached, strategy tuned, assembled by the colored kernels
+            (K13 stream, K14 one-hot) and every other strategy, each equal
+            to the serial oracle bit for bit; the matrix is served and
+            solved on the ``kernel`` path, then re-assembled, refreshed,
+            served and solved at three time steps, and the schedule and the
+            tuned strategy come back from a fresh cache with zero builds.
 
 Each path's two matrices are served by one ``SpmvServingEngine`` and solved
 by ``cg_solve`` / ``bicgstab``.  Answers are checked against a float64
@@ -46,7 +57,9 @@ import gc
 import json
 import math
 import os
+import shutil
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -67,6 +80,14 @@ TOL = 1e-5            # of the row's absolute sum: float32 sums in any order
 # build counters a same-structure value refresh must leave untouched
 STRUCTURAL_BUILDS = ("pack", "flat_pack", "nnzsplit_pack", "coloring",
                      "partition")
+# the assembly path: a cantilever-beam block of 64 x 32 x 32 unit cubes,
+# six Kuhn tets each, elasticity (three DOFs per node), three time steps
+ASM_CUBES = (64, 32, 32)
+ASM_DOF = 3
+ASM_STEPS = 3
+ASM_BUILDS = ("pack", "partition", "coloring", "assembly_schedule",
+              "element_coloring", "assembly_color_pack",
+              "assembly_sorted_pack")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
 FP32_FLOPS = 67e12             # H100 SXM, float32 outside the tensor cores
 
@@ -542,6 +563,7 @@ def phase_kernels(seed: int):
         del pack, runners, abs_runners
         torch.cuda.empty_cache()
     report += _nnzsplit_kernel_cases(seed, rng)
+    report += _assembly_kernel_cases(seed)
     emit("kernels", tolerance=f"exact on dyadic data, else {TOL} of the "
          "row's absolute sum", cases=report)
 
@@ -1048,6 +1070,369 @@ def phase_colorful(side: int, seed: int):
              "true_residual": true, "seconds": round(cg_s, 4)})
 
 
+def _assembly_kernel_cases(seed):
+    """K13 / K14 against their plain versions and the serial oracle,
+    exact on dyadic stiffness: tri / quad / tet meshes with 1-3 DOFs per
+    node, int16 and int32 streams (both gates, the int16-overflow
+    connectivity), an empty color, a single element, a RACE coloring whose
+    colors repeat targets (K13 adds with atomics) and a mid-size tet."""
+    import dataclasses as dc
+    from repro_torch.assembly import conflict
+    from repro_torch.assembly import mesh as amesh
+    from repro_torch.assembly import scatter as asc
+    from repro_torch.kernels import assembly_scatter as ak
+    small_ke = np.asarray([[[2.0, -0.5, -0.25], [-0.5, 1.0, -0.125],
+                            [-0.25, -0.125, 3.0]]], np.float32)
+
+    tri4 = amesh.grid_tri(4)
+    col = conflict.color_elements(tri4.conn)
+    # one more color than the coloring uses: its pack row is all padding
+    empty = dc.replace(col, num_colors=col.num_colors + 1,
+                       color_ptr=np.append(col.color_ptr, col.color_ptr[-1]))
+    cases = [
+        # name, mesh or conn, dofs per node, provider, coloring override
+        ("asm_tri_d1_i16", amesh.grid_tri(8), 1, "greedy", None),
+        ("asm_quad_d2", amesh.grid_quad(6), 2, "greedy", None),
+        ("asm_tet_d3", amesh.grid_tet(3), 3, "greedy", None),
+        ("asm_tri_i32_slots_i16_targets", amesh.grid_tri(44), 1, "greedy",
+         None),
+        ("asm_i16_overflow", np.asarray([[0, 1, 32767]]), 1, "greedy", None),
+        ("asm_single_element", np.asarray([[0, 1, 2]]), 1, "greedy", None),
+        ("asm_empty_color", tri4, 1, "greedy", empty),
+        ("asm_tet16_d3_race", amesh.grid_tet(16), 3, "race", None),
+        ("asm_tet16_d3", amesh.grid_tet(16), 3, "greedy", None),
+    ]
+    report = []
+    for name, mesh, d, provider, coloring in cases:
+        sched = asc.build_assembly_schedule(mesh, d, coloring=coloring,
+                                            coloring_provider=provider)
+        ke = (amesh.synthetic_stiffness(mesh, d, seed=seed + len(report))
+              if hasattr(mesh, "conn") else small_ke)
+        want = assembly_oracle(sched, ke)
+        check(np.array_equal(want, asc.scatter_serial(sched, ke)),
+              f"{name}: the bincount oracle differs from np.add.at")
+        packs = sched.bind("cuda").colored
+        k = torch.from_numpy(ke).cuda().reshape(-1)
+        if "race" in name:
+            check(packs.repeats, f"{name}: no color repeats a target")
+        errs = {}
+        for kname, kernel, plain in (
+                ("assembly_colored_stream", ak.colored_scatter_stream_cuda,
+                 ak.colored_scatter_stream_plain),
+                ("assembly_colored_onehot", ak.colored_scatter_onehot_cuda,
+                 ak.colored_scatter_onehot_plain)):
+            errs[kname] = _compare(f"{name}/{kname}",
+                                   lambda x: kernel(packs, x),
+                                   lambda x: plain(packs, x), k, exact=True)
+            check(np.array_equal(kernel(packs, k).cpu().numpy(), want),
+                  f"{name}/{kname}: differs from the serial oracle")
+        report.append({"case": name, "ne": sched.ne, "dofs_per_node": d,
+                       "provider": provider, "colors": packs.num_colors,
+                       "lmax": packs.lmax, "size": sched.size,
+                       "index_dtypes": sched.index_dtypes,
+                       "atomic": packs.repeats, "exact": True,
+                       "max_err": max(errs.values())})
+        del packs, k
+    torch.cuda.empty_cache()
+    return report
+
+
+def assembly_oracle(sched, ke):
+    """The unified [ad | al | au] vector of the serial assembly, by a
+    float64 ``np.bincount`` of the same targets (exact on dyadic
+    stiffness, so equal to ``np.add.at`` in float32), cast to float32."""
+    return np.bincount(np.asarray(sched.targets),
+                       weights=np.asarray(ke, np.float64).reshape(-1),
+                       minlength=sched.size).astype(np.float32)
+
+
+def _unified(M):
+    return torch.cat([M.ad, M.al, M.au]).cpu().numpy()
+
+
+def _fem_csr(sched, vals):
+    n, k = sched.n, sched.k
+    return scipy_csr(n, sched.ia, sched.ja, vals[:n], vals[n:n + k],
+                     vals[n + k:])
+
+
+def _check_fem_answers(csr, X, Y, what):
+    """Y (n, B) against the float64 scipy product, within 2e-5 of each
+    row's absolute sum |A|·|x|."""
+    check(Y.shape == X.shape and bool(np.isfinite(Y).all()),
+          f"{what}: shape {Y.shape} or non-finite answer")
+    X64 = X.astype(np.float64)
+    err = np.abs(Y - csr @ X64)
+    bound = 2 * TOL * (abs(csr) @ np.abs(X64)) + 1e-30
+    check(bool((err <= bound).all()),
+          f"{what}: differs from the float64 reference (max {err.max()})")
+    return float(err.max())
+
+
+def _true_residual(csr, b, x):
+    r = b - csr @ x.astype(np.float64)
+    return float(np.max(np.linalg.norm(r, axis=0)
+                        / np.linalg.norm(b, axis=0)))
+
+
+def phase_assembly(seed: int, cubes):
+    """The assembly main path at full width; returns (launches of its
+    kernels in the main run, the schedule, the initial stiffness)."""
+    from repro_torch import obs
+    from repro_torch.assembly import mesh as amesh
+    from repro_torch.assembly import scatter as asc
+    from repro_torch.core import solvers
+    from repro_torch.core.paths import BUILD_COUNTS
+    from repro_torch.core.plan import ExecutionPlan
+    from repro_torch.core.tuner import PlanCache
+    from repro_torch.kernels import _build
+    from repro_torch.serve import SpmvServingEngine
+
+    def builds_since(before):
+        return {k: v - before.get(k, 0) for k, v in BUILD_COUNTS.items()
+                if v != before.get(k, 0)}
+
+    def uploads():
+        snap = obs.snapshot()
+        return {part: snap.total("assembly_pack_uploads_total",
+                                 device="cuda", part=part)
+                for part in ("structure", "colored", "sorted", "private")}
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_assembly_")
+    try:
+        t0 = time.perf_counter()
+        mesh = amesh.grid_tet(*cubes)
+        ke0 = amesh.synthetic_stiffness(mesh, ASM_DOF, seed=seed)
+        mesh_s = time.perf_counter() - t0
+
+        # 1. schedule through a path-backed plan cache
+        cache_path = os.path.join(tmp, "plans.json")
+        cache = PlanCache(path=cache_path)
+        obs.clear_trace()
+        before = dict(BUILD_COUNTS.items())
+        t0 = time.perf_counter()
+        sched = asc.assembly_schedule_for(mesh, ASM_DOF, cache=cache)
+        build_s = time.perf_counter() - t0
+        spans = {}
+        for rec in obs.trace():
+            if rec["name"].startswith("assembly."):
+                spans[rec["name"]] = round(
+                    spans.get(rec["name"], 0.0) + rec["duration_s"], 3)
+        check(builds_since(before).get("assembly_schedule") == 1,
+              "the schedule was not built")
+        n, size, G = sched.n, sched.size, sched.num_contribs
+        emit("assembly_build", mesh=mesh.name, elements=sched.ne,
+             nodes=mesh.num_nodes, dofs=n, lower_slots=sched.k,
+             unified_size=size, contributions=G,
+             mesh_and_stiffness_s=round(mesh_s, 3),
+             build_s=round(build_s, 3), spans_s=spans,
+             num_colors=int(sched.coloring.num_colors),
+             lmax=int(sched.color_slots.shape[1]),
+             pad_ratio=round(sched.color_slots.size / G, 4),
+             index_dtypes=sched.index_dtypes,
+             tiles=sched.colored.num_tiles, atomic=sched.colored.repeats)
+        check(not sched.colored.repeats,
+              "a greedy color repeats a target")
+
+        # 2-7: the main run
+        _build.reset_launch_counts()
+        t_main = time.perf_counter()
+        up0 = uploads()
+        t0 = time.perf_counter()
+        tuned = asc.tune_assembly(sched, ke0, cache=cache)
+        tune_s = time.perf_counter() - t0
+        check(not tuned.cached and {k.split("/")[0] for k in
+                                     tuned.timings_s} == {"colored",
+                                                          "sorted",
+                                                          "private"},
+              f"tune_assembly measured {sorted(tuned.timings_s)}")
+        want0 = assembly_oracle(sched, ke0)
+        strategies = {}
+        M0 = None
+        for strategy, variant in asc.ASSEMBLY_CANDIDATES:
+            t0 = time.perf_counter()
+            M = asc.assemble(sched, ke0, strategy, variant)
+            wall = time.perf_counter() - t0
+            check(M.device.type == "cuda", f"{strategy}/{variant}: the "
+                  "matrix left the card")
+            check(np.array_equal(_unified(M), want0),
+                  f"assembly {strategy}/{variant} differs from the serial "
+                  "oracle")
+            strategies[f"{strategy}/{variant}"] = round(wall, 4)
+            if (strategy, variant) == ("colored", "stream"):
+                M0 = M
+        check(M0.numerically_symmetric, "the assembled matrix is not "
+              "symmetric")
+        del M
+
+        plan = ExecutionPlan(path="kernel", variant="stream")
+        eng = SpmvServingEngine(cache=cache)
+        t0 = time.perf_counter()
+        got = eng.register("fem", M0, plan=plan)
+        register_s = time.perf_counter() - t0
+        check(got.key() == plan.key(), f"fem: plan is {got.key()}")
+        csr = _fem_csr(sched, want0)
+        rng = np.random.default_rng(seed + 14)
+
+        def wave(per, csr_t, what):
+            xs = [rng.standard_normal(n, dtype=np.float32)
+                  for _ in range(per)]
+            uids = [eng.submit("fem", x) for x in xs]
+            t_tick = time.perf_counter()
+            out = eng.run_until_drained()
+            tick_s = time.perf_counter() - t_tick
+            check(all(out[u].batched == per and out[u].path == "kernel"
+                      for u in uids), f"{what}: result metadata wrong")
+            Y = np.stack([np.asarray(out[u]) for u in uids], axis=1)
+            err = _check_fem_answers(csr_t, np.stack(xs, axis=1), Y, what)
+            return {"requests": per, "tick_s": round(tick_s, 4),
+                    "execute_s": out[uids[0]].timings["execute_s"],
+                    "err_vs_float64": err}
+
+        waves = [wave(11, csr, "assembled B=11"),
+                 wave(1, csr, "assembled B=1")]
+        b = rng.standard_normal((n, 8), dtype=np.float32)
+        t0 = time.perf_counter()
+        res, _ = solvers.cg_solve(M0, torch.from_numpy(b), cache=cache,
+                                  plan=plan, tol=1e-6)
+        torch.cuda.synchronize()
+        cg_s = time.perf_counter() - t0
+        true0 = _true_residual(csr, b, res.x.cpu().numpy())
+        check(res.converged and true0 <= 1e-5,
+              f"cg on the assembled matrix: {res.residual}, true {true0}")
+
+        op = eng.executor("fem").op
+        steps = []
+        for t in range(1, ASM_STEPS + 1):
+            ke = amesh.synthetic_stiffness(mesh, ASM_DOF, seed=seed + t)
+            want = assembly_oracle(sched, ke)
+            before = dict(BUILD_COUNTS.items())
+            snap = obs.snapshot()
+            t0 = time.perf_counter()
+            M_t = asc.assemble(sched, ke)
+            assemble_s = time.perf_counter() - t0
+            k13_s = obs.snapshot().diff(snap).merged_hist(
+                "assembly_device_seconds", strategy="colored",
+                variant="stream")["sum"]
+            check(np.array_equal(_unified(M_t), want),
+                  f"step {t}: assembly differs from the serial oracle")
+            t0 = time.perf_counter()
+            eng.update_values("fem", M_t)
+            refresh_s = time.perf_counter() - t0
+            csr_t = _fem_csr(sched, want)
+            served = wave(11, csr_t, f"step {t} B=11")
+            b = rng.standard_normal((n, 8), dtype=np.float32)
+            t0 = time.perf_counter()
+            res_t = solvers.cg(op, torch.from_numpy(b).cuda(), tol=1e-6,
+                               diag=M_t.ad)
+            torch.cuda.synchronize()
+            solve_s = time.perf_counter() - t0
+            true_t = _true_residual(csr_t, b, res_t.x.cpu().numpy())
+            check(res_t.converged and true_t <= 1e-5,
+                  f"step {t}: cg {res_t.residual}, true {true_t}")
+            delta = builds_since(before)
+            check(delta.get("assembly_value_refresh") == 1
+                  and delta.get("value_refresh") == 1
+                  and not any(delta.get(k) for k in ASM_BUILDS),
+                  f"step {t} rebuilt structure: {delta}")
+            steps.append({"step": t, "assemble_s": round(assemble_s, 4),
+                          "k13_ms": k13_s * 1e3,
+                          "refresh_s": round(refresh_s, 3),
+                          "wave": served, "cg_iters": res_t.iters,
+                          "cg_s": round(solve_s, 4),
+                          "true_residual": true_t, "builds": delta})
+        counts = _build.launch_counts()
+        main_s = time.perf_counter() - t_main
+        up = {part: v - up0[part] for part, v in uploads().items()}
+        check(all(v == 1 for v in up.values()), f"each strategy's streams "
+              f"must go to the card once in the main run: {up}")
+
+        # 8. a fresh cache on the same path: hits only, nothing timed
+        before = dict(BUILD_COUNTS.items())
+        fresh = PlanCache(path=cache_path)
+
+        def never(fn, k):
+            fail("tune_assembly measured on a cache hit")
+
+        t0 = time.perf_counter()
+        sched2 = asc.assembly_schedule_for(mesh, ASM_DOF, cache=fresh)
+        tuned2 = asc.tune_assembly(sched2, ke0, cache=fresh, measure=never)
+        reload_s = time.perf_counter() - t0
+        check(fresh.assembly_hits == 1 and tuned2.cached
+              and tuned2.key() == tuned.key()
+              and not builds_since(before),
+              f"fresh cache: hits {fresh.assembly_hits}, tuned "
+              f"{tuned2.key()} cached={tuned2.cached}, builds "
+              f"{builds_since(before)}")
+        emit("assembly", mesh=mesh.name, tuned=tuned.key(),
+             tune_s=round(tune_s, 3),
+             tune_timings_ms={k: v * 1e3 for k, v in
+                              tuned.timings_s.items()},
+             tune_predicted_ms={k: v * 1e3 for k, v in
+                                tuned.predictions_s.items()},
+             assemble_wall_s=strategies, register_s=round(register_s, 3),
+             waves=waves,
+             cg={"nrhs": 8, "iters": res.iters, "residual": res.residual,
+                 "true_residual": true0, "seconds": round(cg_s, 4)},
+             steps=steps, pack_uploads=up,
+             main_run_s=round(main_s, 3), launches=counts,
+             fresh_cache={"reload_s": round(reload_s, 3),
+                          "assembly_hits": fresh.assembly_hits,
+                          "tuned": tuned2.key(), "builds": {}})
+        del eng, M0, M_t, op, sched2
+        return counts, sched, ke0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_assembly_kernels(sched, ke, launches, cubes):
+    """K13 and K14 at the assembly path's shapes: against their plain
+    versions (exact), timed, beside their bound and one library call (an
+    ``index_add_`` of all contributions at their targets)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import assembly_scatter as ak
+    packs = sched.bind("cuda").colored
+    k = torch.from_numpy(ke).cuda().reshape(-1)
+    targets = torch.from_numpy(np.asarray(sched.targets)).cuda()
+    out = torch.zeros(sched.size, device="cuda")
+    library_ms = time_ms(lambda: out.index_add_(0, targets, k))
+    rows = []
+    for kname, variant, kernel, plain in (
+            ("assembly_colored_stream", "stream",
+             ak.colored_scatter_stream_cuda, ak.colored_scatter_stream_plain),
+            ("assembly_colored_onehot", "onehot",
+             ak.colored_scatter_onehot_cuda,
+             ak.colored_scatter_onehot_plain)):
+        err = _compare(f"path/{kname}", lambda x: kernel(packs, x),
+                       lambda x: plain(packs, x), k, exact=True)
+        ms = time_ms(lambda: kernel(packs, k))
+        plain_ms = time_ms(lambda: plain(packs, k))
+        bytes_moved = packs.streamed_bytes()
+        flops = sched.num_contribs           # one add per contribution
+        t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / FP32_FLOPS * 1e3
+        kern = _build.KERNELS[kname]
+        rows.append({
+            "name": kname, "route": "cuda", "source": kern.repo_source,
+            "replaces": kern.replaces, "launches": launches[kname],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms,
+            "shape": {"mesh": "tet%dx%dx%d" % tuple(cubes),
+                      "dofs_per_node": ASM_DOF,
+                      "colors": packs.num_colors, "lmax": packs.lmax,
+                      "tiles": packs.num_tiles, "size": sched.size,
+                      "contributions": sched.num_contribs,
+                      "index_dtypes": sched.index_dtypes,
+                      "atomic": packs.repeats},
+            "bytes": bytes_moved,
+            "layout_bytes": packs.layout_bytes(variant), "flops": flops})
+    del out, targets, k
+    torch.cuda.empty_cache()
+    return rows
+
+
 def csrc_abs(n, ia, ja, ad, al, au):
     from repro_torch.core import csrc
     return csrc.from_assembly(n, ia, ja, np.abs(ad), np.abs(al), np.abs(au))
@@ -1058,6 +1443,9 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--n", type=int, default=2_097_152,
                     help="rows of the serve/solve matrices")
+    ap.add_argument("--cubes", type=int, nargs=3, default=ASM_CUBES,
+                    metavar=("X", "Y", "Z"),
+                    help="unit cubes of the assembly path's tet block")
     ap.add_argument("--verbose-build", action="store_true",
                     help="print nvcc's register / shared-memory report")
     args = ap.parse_args()
@@ -1068,9 +1456,9 @@ def main() -> int:
              "NVIDIA GPU")
     from repro_torch import device as device_mod
     from repro_torch.kernels import _build
-    from repro_torch.kernels import (csrc_spmm, csrc_spmv,  # noqa: F401
-                                     csrc_spmv_flat,        # (register)
-                                     csrc_spmv_nnzsplit)
+    from repro_torch.kernels import (assembly_scatter,  # noqa: F401
+                                     csrc_spmm, csrc_spmv,  # (register)
+                                     csrc_spmv_flat, csrc_spmv_nnzsplit)
 
     torch.manual_seed(args.seed)
     card = phase_env()
@@ -1097,6 +1485,17 @@ def main() -> int:
         del eng, work
         gc.collect()
         torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    counts, sched, ke0 = phase_assembly(args.seed, args.cubes)
+    for name in ("assembly_colored_stream", "assembly_colored_onehot"):
+        check(counts[name] > 0, f"kernel {name} was never launched on the "
+              "assembly path's main run")
+        launches[name] = counts[name]
+    rows += phase_assembly_kernels(sched, ke0, launches, args.cubes)
+    emit("assembly_phase", seconds=round(time.perf_counter() - t0, 3))
+    del sched, ke0
+    gc.collect()
+    torch.cuda.empty_cache()
     for name in _build.KERNELS:
         check(name in launches, f"kernel {name} is on no main path")
     t0 = time.perf_counter()

@@ -137,6 +137,35 @@ def coloring_from_arrays(*, color_of_row, num_colors: int, rows_by_color,
                     group_of_row=opt(group_of_row))
 
 
+def assembly_schedule_from_arrays(*, structure_digest: str, n: int, k: int,
+                                  ne: int, edof: int, ndof_per_node: int,
+                                  num_buffers: int, ia, ja, targets,
+                                  coloring, buffer_elements, color_slots,
+                                  color_targets, sorted_perm,
+                                  sorted_targets):
+    """An :class:`~repro_torch.assembly.scatter.AssemblySchedule` from a
+    foreign one's fields.  ``coloring`` is a
+    :class:`~repro_torch.core.coloring.Coloring` or the keyword arrays of
+    :func:`coloring_from_arrays`; index streams keep the integer dtypes
+    they arrive in (the int16 gate travels with them).  The kernel packs
+    are validated and bucketed on construction: a malformed pack raises
+    ValueError."""
+    from repro_torch.assembly.scatter import AssemblySchedule
+    from repro_torch.core.coloring import Coloring
+    if not isinstance(coloring, Coloring):
+        coloring = coloring_from_arrays(**coloring)
+    return AssemblySchedule(
+        structure_digest=str(structure_digest), n=int(n), k=int(k),
+        ne=int(ne), edof=int(edof), ndof_per_node=int(ndof_per_node),
+        num_buffers=int(num_buffers), ia=np.asarray(ia), ja=np.asarray(ja),
+        targets=np.asarray(targets), coloring=coloring,
+        buffer_elements=np.asarray(buffer_elements),
+        color_slots=np.asarray(color_slots),
+        color_targets=np.asarray(color_targets),
+        sorted_perm=np.asarray(sorted_perm),
+        sorted_targets=np.asarray(sorted_targets))
+
+
 def plan_from_dict(d: Dict) -> ExecutionPlan:
     """An :class:`ExecutionPlan` from another plan's ``to_dict()``."""
     return ExecutionPlan.from_dict(dict(d))

@@ -14,9 +14,11 @@ tuner the main path needs:
                              window fits, else ``segment``, plus the
                              analytic distributed fields
   PlanCache                  JSON plan cache keyed by fingerprint, with the
-                             schedule npz layer beside it; the file formats
-                             are the JAX package's, so caches written by
-                             either package load in the other
+                             schedule npz layer and the assembly layer
+                             (schedules and tuned strategies) beside it;
+                             the file formats are the JAX package's, so
+                             caches written by either package load in the
+                             other
   plan_for                   the entry point used by solvers and the serve
                              engine
 
@@ -148,6 +150,9 @@ class PlanCache:
         self.schedules: Dict[str, object] = {}
         self.schedule_hits = 0
         self.schedule_misses = 0
+        self.assembly_schedules: Dict[str, object] = {}
+        self.assembly_hits = 0
+        self.assembly_misses = 0
         if path is not None and os.path.exists(path):
             self._read(path)
 
@@ -305,6 +310,72 @@ class PlanCache:
                     and plan_artifact_fields(sched.plan) == fields):
                 return sched
         return None
+
+    # ---- assembly schedules (repro_torch.assembly.scatter), stored beside
+    # the SpMV schedules and keyed by connectivity digest ----
+
+    def get_assembly_schedule(self, digest: str, num_buffers: int = 8,
+                              coloring: str = "greedy"):
+        """The cached AssemblySchedule for this connectivity digest, or
+        None.  Memory first, then the npz beside the cache — a hit means
+        zero structural assembly work (slot maps, coloring, buffers).
+        ``coloring`` picks the element-coloring provider slice of the
+        cache."""
+        from repro_torch.assembly.scatter import (AssemblySchedule,
+                                                  assembly_key)
+        key = assembly_key(digest, num_buffers, coloring)
+        sched = self.assembly_schedules.get(key)
+        if sched is None:
+            d = self._schedule_dir()
+            f = None if d is None else os.path.join(d, key + ".npz")
+            if f is not None and os.path.exists(f):
+                try:
+                    sched = AssemblySchedule.load_npz(f)
+                except Exception:      # stale version / truncated: rebuild
+                    sched = None
+                if sched is not None and (
+                        sched.structure_digest != digest
+                        or sched.coloring.provider != coloring):
+                    sched = None
+                if sched is not None:
+                    self.assembly_schedules[key] = sched
+        if sched is None:
+            self.assembly_misses += 1
+            obs.counter("plan_cache_lookups_total", kind="assembly",
+                        outcome="miss").inc()
+            return None
+        self.assembly_hits += 1
+        obs.counter("plan_cache_lookups_total", kind="assembly",
+                    outcome="hit").inc()
+        return sched
+
+    def put_assembly_schedule(self, sched):
+        key = sched.key()
+        self.assembly_schedules[key] = sched
+        d = self._schedule_dir()
+        if d is not None:
+            sched.save_npz(os.path.join(d, key + ".npz"))
+
+    # ---- assembly strategy plans (assembly.scatter.tune_assembly): the
+    # tuned (strategy, variant) winner + predict/measure provenance, stored
+    # as a JSON record under "asmplan-<schedule key>" ----
+
+    def get_assembly_plan(self, key: str):
+        """The tuned assembly record for this schedule key, or None."""
+        e = self.entries.get(key)
+        rec = None if e is None else e.get("assembly")
+        if rec is None:
+            obs.counter("plan_cache_lookups_total", kind="assembly_plan",
+                        outcome="miss").inc()
+            return None
+        obs.counter("plan_cache_lookups_total", kind="assembly_plan",
+                    outcome="hit").inc()
+        return dict(rec)
+
+    def put_assembly_plan(self, key: str, record: Dict):
+        self.entries[key] = {"assembly": dict(record), "measured": True}
+        if self.path:
+            self.save()
 
     def __len__(self) -> int:
         return len(self.entries)

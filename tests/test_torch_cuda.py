@@ -1,4 +1,4 @@
-"""The CUDA kernels (K1-K12) against their plain versions, on the card.
+"""The CUDA kernels (K1-K14) against their plain versions, on the card.
 
 These tests need an NVIDIA GPU and ``nvcc`` and skip elsewhere (the check
 is made inside the fixture, never at import).  Run them on the card with
@@ -12,9 +12,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.assembly import mesh as amesh
+from repro_torch.assembly import scatter as ascatter
 from repro_torch.core import blockell, csrc
 from repro_torch.core.plan import ExecutionPlan
 from repro_torch.kernels import _build
+from repro_torch.kernels import assembly_scatter as ak
 from repro_torch.kernels import csrc_spmm as mm
 from repro_torch.kernels import csrc_spmv as mv
 from repro_torch.kernels import csrc_spmv_flat as fl
@@ -202,3 +205,84 @@ def test_nnzsplit_and_colorful_plans_on_the_card_match_segment(card):
     assert op.device.type == "cuda" and op.pack is None
     assert torch.equal(op(x.cuda()), want)
     assert torch.equal(op(x[:, 0].cuda()), want[:, 0])
+
+
+ASSEMBLY_CASES = {
+    "tri_d1_i16": (lambda: amesh.grid_tri(8), 1, "greedy"),
+    "quad_d2": (lambda: amesh.grid_quad(6), 2, "greedy"),
+    "tet_d3": (lambda: amesh.grid_tet(3), 3, "greedy"),
+    "tet_d3_race": (lambda: amesh.grid_tet(4), 3, "race"),
+    "tri_i32_slots_i16_targets": (lambda: amesh.grid_tri(44), 1, "greedy"),
+}
+
+
+@pytest.mark.parametrize("case", list(ASSEMBLY_CASES))
+def test_assembly_kernels_equal_plain_versions_and_oracle(card, case):
+    """K13 and K14, each launched once, against their plain versions and
+    the serial oracle on dyadic stiffness; K14 repeats bit for bit.  The
+    RACE case repeats targets inside a color, so K13 adds with atomics."""
+    make, d, provider = ASSEMBLY_CASES[case]
+    mesh = make()
+    sched = ascatter.build_assembly_schedule(mesh, d,
+                                             coloring_provider=provider)
+    assert sched.colored.repeats == (provider == "race")
+    ke = amesh.synthetic_stiffness(mesh, d, seed=3)
+    want = ascatter.scatter_serial(sched, ke)
+    packs = sched.bind(card).colored
+    k = torch.from_numpy(ke).to(card).reshape(-1)
+    before = _build.launch_counts()
+    stream = ak.colored_scatter_stream_cuda(packs, k)
+    onehot = ak.colored_scatter_onehot_cuda(packs, k)
+    after = _build.launch_counts()
+    assert after["assembly_colored_stream"] == before[
+        "assembly_colored_stream"] + 1
+    assert after["assembly_colored_onehot"] == before[
+        "assembly_colored_onehot"] + 1
+    assert torch.equal(stream, ak.colored_scatter_stream_plain(packs, k))
+    assert torch.equal(onehot, ak.colored_scatter_onehot_plain(packs, k))
+    np.testing.assert_array_equal(stream.cpu().numpy(), want)
+    np.testing.assert_array_equal(onehot.cpu().numpy(), want)
+    assert torch.equal(onehot, ak.colored_scatter_onehot_cuda(packs, k))
+
+
+def test_assembly_int16_overflow_empty_color_and_single_element(card):
+    import dataclasses
+    from repro_torch.assembly import conflict
+    ke1 = np.asarray([[[2.0, -0.5, -0.25], [-0.5, 1.0, -0.125],
+                       [-0.25, -0.125, 3.0]]], np.float32)
+    for conn in (np.asarray([[0, 1, 32767]]), np.asarray([[0, 1, 2]])):
+        sched = ascatter.build_assembly_schedule(conn)
+        want = ascatter.scatter_serial(sched, ke1)
+        for variant in ("stream", "onehot"):
+            got = ascatter.scatter_colored(sched, ke1, variant, device=card)
+            np.testing.assert_array_equal(got.cpu().numpy(), want)
+    mesh = amesh.grid_tri(4)
+    col = conflict.color_elements(mesh.conn)
+    padded = dataclasses.replace(
+        col, num_colors=col.num_colors + 1,
+        color_ptr=np.append(col.color_ptr, col.color_ptr[-1]))
+    sched = ascatter.build_assembly_schedule(mesh, coloring=padded)
+    ke = amesh.synthetic_stiffness(mesh, seed=9)
+    want = ascatter.scatter_serial(sched, ke)
+    for variant in ("stream", "onehot"):
+        got = ascatter.scatter_colored(sched, ke, variant, device=card)
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+def test_assemble_on_the_card_binds_once_and_keeps_values_there(card):
+    from repro_torch import obs
+    mesh = amesh.grid_tet(3)
+    sched = ascatter.build_assembly_schedule(mesh, 3)
+    ke = amesh.synthetic_stiffness(mesh, 3, seed=1)
+    want = ascatter.scatter_serial(sched, ke)
+    before = obs.snapshot()
+    for strategy, variant in ascatter.ASSEMBLY_CANDIDATES:
+        M = ascatter.assemble(sched, ke, strategy, variant)
+        assert M.device.type == "cuda" and M.ia.device.type == "cuda"
+        got = torch.cat([M.ad, M.al, M.au]).cpu().numpy()
+        np.testing.assert_array_equal(got, want, err_msg=strategy + variant)
+    d = obs.snapshot().diff(before)
+    for part in ("structure", "colored", "sorted", "private"):
+        assert d.total("assembly_pack_uploads_total", part=part) == 1, part
+    assert d.merged_hist("assembly_device_seconds", strategy="colored",
+                         variant="stream").get("count") == 1

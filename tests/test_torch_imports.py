@@ -42,6 +42,12 @@ def test_sources_found():
                  "src/repro_torch/kernels/csrc_spmv_stream.py",
                  "src/repro_torch/kernels/csrc_spmv_flat.py",
                  "src/repro_torch/kernels/csrc_spmv_nnzsplit.py",
+                 "src/repro_torch/kernels/assembly_scatter.py",
+                 "src/repro_torch/assembly/__init__.py",
+                 "src/repro_torch/assembly/mesh.py",
+                 "src/repro_torch/assembly/conflict.py",
+                 "src/repro_torch/assembly/scatter.py",
+                 "src/repro_torch/roofline/cost_model.py",
                  "src/repro_torch/core/coloring.py",
                  "src/repro_torch/core/solvers.py",
                  "src/repro_torch/serve/engine.py",
@@ -81,7 +87,7 @@ def test_import_in_a_fresh_process_pulls_in_nothing_foreign():
     info = json.loads(out.stdout.strip().splitlines()[-1])
     assert not (set(info["roots"]) & (FORBIDDEN | {"triton"})), info["roots"]
     assert "torch" in info["roots"]
-    assert len(info["kernels"]) == 12 and not any(info["bound"])
+    assert len(info["kernels"]) == 14 and not any(info["bound"])
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():

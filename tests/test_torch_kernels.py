@@ -180,6 +180,7 @@ def test_kernel_sources_and_notes_exist():
     """Every registered kernel has its CUDA source in the package and names
     the TPU body it replaces as ``file:line``."""
     import os
+    import re
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     for k in _build.KERNELS.values():
         assert os.path.isfile(k.source), k.source
@@ -188,7 +189,8 @@ def test_kernel_sources_and_notes_exist():
         assert "Replaces the TPU body" in src and "Bound on this card" in src
         path, line = k.replaces.rsplit(":", 1)
         body = open(os.path.join(root, path)).read().split("\n")[int(line) - 1]
-        assert body.startswith("def _kernel"), (k.name, body)
+        # the def line of a Pallas body: _kernel*, _colored_kernel_*
+        assert re.match(r"def _\w*kernel\w*\(", body), (k.name, body)
         assert k.repo_source == os.path.relpath(k.source, root)
 
 
