@@ -288,6 +288,44 @@ def gap_arrays(seed, gap=3999, width=600):
     return ia, ja, np.full(n, 2.0, dtype=np.float32), al, au
 
 
+def onehot_adversary_arrays(case, seed):
+    """A small matrix (dyadic values, numerically non-symmetric, a band of
+    3 besides) whose flat pack stresses K7/K8's row runs and column
+    buckets:
+
+      row_spans_steps  rows 1000-1199 hold 1,000 slots each: over steps of
+                       128 slots a row's run fills whole steps and crosses
+                       step boundaries;
+      bucket_128       every row reaches column 0, so one column's bucket
+                       holds a slot of every row of a step; rows 1280-1535
+                       are empty, so their tiles hold one step of padding;
+      w4096            rows from 3968 on reach 3968 back: W = 4096.
+
+    Returns (ia, ja, ad, al, au)."""
+    n = 8192 if case == "w4096" else 3000
+    r = np.arange(n, dtype=np.int64)
+    width = np.full(n, 3, dtype=np.int64)
+    if case == "row_spans_steps":
+        width[1000:1200] = 1000
+    count = r - np.maximum(0, r - width)
+    hi = np.repeat(r, count)
+    lo = hi - 1 - (np.arange(hi.shape[0]) - np.repeat(np.cumsum(count)
+                                                      - count, count))
+    if case == "bucket_128":
+        hi = np.concatenate([hi, r[1:]])
+        lo = np.concatenate([lo, np.zeros(n - 1, np.int64)])
+        keep = (hi < 1280) | (hi >= 1536)
+        hi, lo = hi[keep], lo[keep]
+    if case == "w4096":
+        hi = np.concatenate([hi, r[3968:]])
+        lo = np.concatenate([lo, r[3968:] - 3968])
+    ia, ja, _ = _lower_from_pairs(n, hi, lo)
+    rng = np.random.default_rng(seed)
+    al = _dyadic_values(rng, ja.shape[0])
+    au = _dyadic_values(rng, ja.shape[0])
+    return ia, ja, np.full(n, 8.0, dtype=np.float32), al, au
+
+
 def poisson_arrays(side):
     """The 5-point Laplacian on a side x side grid, the class of
     ``csrc.poisson2d``: diagonal 4, -1 to each grid neighbour (row-major
@@ -475,7 +513,7 @@ def _compare(name, kernel, plain, x, exact, abs_plain=None):
 
 
 def phase_kernels(seed: int):
-    """K1-K8 against their plain versions at small and mid shapes."""
+    """K1-K14 against their plain versions at small and mid shapes."""
     from repro_torch.core import blockell, csrc
     from repro_torch.kernels import csrc_spmv_flat as fl
     rng = np.random.default_rng(seed + 1)
@@ -562,10 +600,74 @@ def phase_kernels(seed: int):
                        "exact": dyadic, "max_err": max(errs.values())})
         del pack, runners, abs_runners
         torch.cuda.empty_cache()
+    report += _flat_onehot_cases(seed, rng)
     report += _nnzsplit_kernel_cases(seed, rng)
     report += _assembly_kernel_cases(seed)
     emit("kernels", tolerance=f"exact on dyadic data, else {TOL} of the "
          "row's absolute sum", cases=report)
+
+
+def _flat_onehot_cases(seed, rng):
+    """K5-K8 on flat packs that stress K7/K8's runs and buckets (see
+    ``onehot_adversary_arrays``), exact on dyadic data at B = 1, 3 and 64;
+    each case leaves K8 a partial column tile (tiles of 7 columns at
+    W = 1,152, of 2 at W = 3,200 and 4,096)."""
+    from repro_torch.core import csrc
+    from repro_torch.kernels import csrc_spmv_flat as fl
+    from repro_torch.kernels.csrc_spmm import column_tile
+    cases = [
+        # name, generator case, dtype, idx, ks
+        ("flat_row_spans_steps", "row_spans_steps", torch.float32,
+         torch.int32, 1),
+        ("flat_bucket_128_padding_step", "bucket_128", torch.float32,
+         torch.int32, 8),
+        ("flat_w4096_bf16_i16", "w4096", torch.bfloat16, torch.int16, 8),
+    ]
+    report = []
+    for name, case, vdt, idt, ks in cases:
+        arrays = onehot_adversary_arrays(case, seed + 50 + len(report))
+        n = arrays[0].shape[0] - 1
+        M = csrc.from_assembly(n, *arrays)
+        pack = fl.pack_flat(M, ks=ks, dtype=vdt, index_dtype=idt).to("cuda")
+        rows = pack.row_in_win.long()
+        cols = pack.col_local.long()
+        real = cols < pack.w_pad
+        per_step = torch.zeros((pack.total_steps, pack.w_pad + 1),
+                               dtype=torch.int64, device=cols.device)
+        per_step.scatter_add_(1, cols.clamp(max=pack.w_pad),
+                              torch.ones_like(cols))
+        geometry = {
+            "w_pad": pack.w_pad, "total_steps": pack.total_steps,
+            "one_row_steps": int((rows == rows[:, :1]).all(1).sum()),
+            "largest_bucket": int(per_step[:, :pack.w_pad].max()),
+            "padding_only_steps": int((~real).all(1).sum()),
+            "k8_column_tiles": {b: column_tile(pack.w_pad, b, 2)
+                                for b in (3, 64)}}
+        if case == "row_spans_steps":
+            check(geometry["one_row_steps"] > 1,
+                  f"{name}: no step holds a single row's slots")
+        if case == "bucket_128":
+            check(geometry["largest_bucket"] >= 128
+                  and geometry["padding_only_steps"] > 0,
+                  f"{name}: no 128-slot bucket or padding-only step "
+                  f"({geometry})")
+        if case == "w4096":
+            check(pack.w_pad == 4096, f"{name}: window {pack.w_pad}")
+        runners = _runners(pack, ks)
+        errs = {}
+        for width in (1, 3, 64):
+            shape = (n,) if width == 1 else (n, width)
+            x = torch.from_numpy(dyadic_vector(rng, shape)).cuda()
+            for kname, (kernel, plain) in runners.items():
+                if ("spmv" in kname) != (width == 1):
+                    continue
+                errs[f"{kname}/B{width}"] = _compare(
+                    f"{name}/{kname}/B{width}", kernel, plain, x, exact=True)
+        report.append({"case": name, "n": n, "nt": pack.nt, **geometry,
+                       "exact": True, "max_err": max(errs.values())})
+        del pack, runners
+        torch.cuda.empty_cache()
+    return report
 
 
 def _nnzsplit_kernel_cases(seed, rng):

@@ -39,8 +39,8 @@ CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-_HEADERS = ("blockell_common.cuh", "window_kernels.cuh", "chunk_kernels.cuh",
-            "assembly_common.cuh")
+_HEADERS = ("blockell_common.cuh", "window_kernels.cuh", "window_runs.cuh",
+            "chunk_kernels.cuh", "assembly_common.cuh")
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 _lock = threading.Lock()

@@ -26,9 +26,14 @@ Kernels, selected by ``variant``:
             Bound by bytes; one block per tile over the tile's steps,
             shared-memory window and atomics.
   'onehot'  K7, csrc/flat_spmv_onehot.cu, and K8, csrc/flat_spmm_onehot.cu
-            — replace ::_kernel / ::_kernel_mm.  Bound by operations; one
-            thread per window position (and column), a fixed summation
-            order, bit-identical reruns.
+            — replace ::_kernel / ::_kernel_mm.  One block per tile (and
+            column tile) over the tile's steps, the body of
+            csrc/window_runs.cuh: per step, each window row sums its run of
+            slots (the step's rows never decrease) and each column its
+            bucket from a stable counting sort by column, in slot order,
+            and the window takes the two sums — the TPU body's order, no
+            float atomics, bit-identical reruns.  The row order is checked
+            with the step ranges (:func:`check_step_rows`).
 
 Their plain PyTorch versions — the fused gather + ``index_add_`` form
 (``csrc_spmv_stream.flat_windows_fused``) and the step-by-step one-hot form
@@ -100,6 +105,17 @@ def step_ranges(tile_of_step, first_of_tile, nt: int) -> torch.Tensor:
     return torch.from_numpy(starts.astype(np.int32))
 
 
+def check_step_rows(row_in_win: torch.Tensor) -> None:
+    """Raise ValueError unless ``row_in_win`` (total, step) never decreases
+    inside a k-step.  K7/K8 find the slots of a window row as one run of the
+    staged step; every packer writes the slots row-major, padding (row W-1)
+    last."""
+    rows = row_in_win.reshape(row_in_win.shape[0], -1)
+    if bool((rows[:, 1:] < rows[:, :-1]).any()):
+        raise ValueError("row_in_win must be non-decreasing within each "
+                         "k-step (row-major slots)")
+
+
 @dataclasses.dataclass(frozen=True)
 class FlatBlockEll:
     n: int
@@ -123,6 +139,7 @@ class FlatBlockEll:
 
     def __post_init__(self):
         if self.step_start is None:
+            check_step_rows(self.row_in_win)
             starts = step_ranges(self.tile_of_step, self.first_of_tile,
                                  self.nt)
             object.__setattr__(self, "step_start",
@@ -417,7 +434,7 @@ def flat_spmm_onehot_cuda(pack: FlatBlockEll, X: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(X.device):
         K8.launch(*pointers, X.data_ptr(), out.data_ptr(), pack.nt,
                   pack.step, pack.tm, pack.w_pad, pack.n, nrhs,
-                  column_tile(pack.w_pad, nrhs, 1), *flags)
+                  column_tile(pack.w_pad, nrhs, 2), *flags)
     return out
 
 

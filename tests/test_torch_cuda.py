@@ -144,6 +144,74 @@ def test_flat_plan_on_the_card_launches_kernels_and_matches_segment(card):
         assert _build.launch_counts()[kernel] == before + 1
 
 
+def _onehot_adversary(case, seed=0):
+    """A small matrix (dyadic values, numerically non-symmetric) whose flat
+    pack stresses K7/K8's row runs and column buckets, with its pack
+    arguments and a check that the pack has the feature.  A band of 3
+    besides:
+
+      row_spans_steps  rows 1000-1199 hold 1,000 slots each: over steps of
+                       128 slots a row's run fills whole steps and crosses
+                       step boundaries;
+      bucket_128       every row reaches column 0, so one column's bucket
+                       holds a slot of every row of a step; rows 1280-1535
+                       are empty, so their tiles hold one step of padding;
+      w4096_bf16_i16   rows from 3968 on reach 3968 back: W = 4096, with
+                       bfloat16 values and int16 indices.
+    """
+    n = 8192 if case == "w4096_bf16_i16" else 3000
+    r = np.arange(n)
+    width = np.full(n, 3)
+    if case == "row_spans_steps":
+        width[1000:1200] = 1000
+    lower = [set(range(max(0, i - w), i)) for i, w in zip(r, width)]
+    for i in r:
+        if case == "bucket_128" and i > 0:
+            lower[i] = set() if 1280 <= i < 1536 else lower[i] | {0}
+        if case == "w4096_bf16_i16" and i >= 3968:
+            lower[i].add(i - 3968)
+    ia = np.zeros(n + 1, np.int32)
+    np.cumsum([len(c) for c in lower], out=ia[1:])
+    ja = np.concatenate([sorted(c) for c in lower]).astype(np.int32)
+    rng = np.random.default_rng(seed)
+    al, au = ((rng.integers(-8, 9, (2, ja.size)) / 4).astype(np.float32))
+    M = csrc.from_assembly(n, ia, ja, np.full(n, 8.0, np.float32), al, au)
+
+    def bucket_max(p):
+        cols = p.col_local.long().cpu()
+        return max(int(torch.bincount(c[c < p.w_pad]).max()) for c in cols
+                   if bool((c < p.w_pad).any()))
+    if case == "row_spans_steps":
+        return M, dict(ks=1), lambda p: bool(
+            (p.row_in_win == p.row_in_win[:, :1]).all(1).sum() > 1)
+    if case == "bucket_128":
+        return M, dict(ks=8), lambda p: (
+            bucket_max(p) >= 128
+            and bool((p.col_local == p.w_pad).all(1).any()))
+    return M, dict(ks=8, dtype=torch.bfloat16, index_dtype=torch.int16), (
+        lambda p: p.w_pad == 4096)
+
+
+@pytest.mark.parametrize("case", ["row_spans_steps", "bucket_128",
+                                  "w4096_bf16_i16"])
+def test_onehot_flat_kernels_equal_plain_on_adversarial_packs(card, case):
+    """K7/K8 against their plain version, exactly on dyadic data, at B = 1,
+    3 and 64 (partial column tiles), and two runs bit for bit."""
+    M, kw, has_feature = _onehot_adversary(case)
+    pack = fl.pack_flat(M, **kw).to(card)
+    assert has_feature(pack)
+    rng = np.random.default_rng(3)
+    for nrhs, kernel in ((1, fl.flat_spmv_onehot_cuda),
+                         (3, fl.flat_spmm_onehot_cuda),
+                         (64, fl.flat_spmm_onehot_cuda)):
+        shape = (M.n,) if nrhs == 1 else (M.n, nrhs)
+        x = torch.from_numpy((rng.integers(-8, 9, shape) / 8
+                              ).astype(np.float32)).to(card)
+        got = kernel(pack, x)
+        assert torch.equal(got, fl.flat_windows_onehot_plain(pack, x))
+        assert torch.equal(got, kernel(pack, x))
+
+
 def _dyadic_powerlaw(n=3000, seed=0, symmetric=True):
     """A power-law graph Laplacian (hub rows, labels shuffled) with dyadic
     values; ``symmetric=False`` scales the upper half."""

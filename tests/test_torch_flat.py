@@ -181,6 +181,49 @@ def test_malformed_step_maps_raise_before_any_launch():
             convert.flat_from_arrays(**kw, **{**good, **bad})
 
 
+@pytest.mark.parametrize("source", ["pack_flat", "load_npz",
+                                    "flat_from_arrays", "one_step_shuffled"])
+def test_rows_never_decrease_inside_a_step(source, tmp_path):
+    """K7/K8 find a window row's slots as one run of the staged k-step: every
+    pack built, loaded from a reference-written npz or converted keeps its
+    rows non-decreasing inside each step, and a pack with one step's rows
+    shuffled raises ValueError when it is constructed, before any launch."""
+    if source == "pack_flat":
+        packs = [tflat.pack_flat(to_torch_csrc(FLAT_MATRICES[name]()), tm=tm,
+                                 ks=ks, dtype=DTYPES[d][2],
+                                 index_dtype=DTYPES[d][3])
+                 for name, tm, ks in CASES for d in DTYPES]
+    elif source == "load_npz":
+        Mj = dyadic(FLAT_MATRICES["skew1024"]())
+        sj = jsched.build_schedule(Mj, jplan.ExecutionPlan(
+            path="flat", tm=64, k_step_sublanes=1))
+        f = str(tmp_path / "flat.npz")
+        sj.save_npz(f)
+        packs = [tsched.SpmvSchedule.load_npz(f).flat_pack]
+    elif source == "flat_from_arrays":
+        packs = [_foreign_flat(_packs(name, tm, ks, d)[1])
+                 for name, tm, ks in CASES[:4] for d in DTYPES]
+    else:
+        _, pj, pt = _packs("skew1024", 64, 1)
+        rows = pt.row_in_win.clone()
+        j = int(np.flatnonzero((rows[:, 0] != rows[:, -1]).numpy())[0])
+        rows[j] = rows[j][np.random.default_rng(0).permutation(pt.step)]
+        assert bool((rows[j, 1:] < rows[j, :-1]).any())
+        good = {f: np32(getattr(pj, f)) for f in FLAT_ARRAYS}
+        kw = dict(n=pj.n, tm=pj.tm, nt=pj.nt, w_pad=pj.w_pad,
+                  total_steps=pj.total_steps, ks=pj.ks, num_symmetric=False,
+                  pad_ratio=pj.pad_ratio)
+        with pytest.raises(ValueError, match="non-decreasing"):
+            convert.flat_from_arrays(**kw, **{**good,
+                                              "row_in_win": rows.numpy()})
+        with pytest.raises(ValueError, match="non-decreasing"):
+            dataclasses.replace(pt, row_in_win=rows, step_start=None)
+        return
+    for pack in packs:
+        rows = pack.row_in_win.to(torch.int64)
+        assert bool((rows[:, 1:] >= rows[:, :-1]).all())
+
+
 def test_pack_flat_gates_raise_like_reference():
     Mj = FLAT_MATRICES["skew256"]()
     Mt = to_torch_csrc(Mj)
