@@ -290,16 +290,20 @@ def gap_arrays(seed, gap=3999, width=600):
 
 def onehot_adversary_arrays(case, seed):
     """A small matrix (dyadic values, numerically non-symmetric, a band of
-    3 besides) whose flat pack stresses K7/K8's row runs and column
-    buckets:
+    3 besides) whose packs stress the one-hot kernels' row runs and column
+    buckets (K3/K4 on the rectangular grid, K7/K8 on the flat one):
 
-      row_spans_steps  rows 1000-1199 hold 1,000 slots each: over steps of
-                       128 slots a row's run fills whole steps and crosses
-                       step boundaries;
-      bucket_128       every row reaches column 0, so one column's bucket
-                       holds a slot of every row of a step; rows 1280-1535
-                       are empty, so their tiles hold one step of padding;
-      w4096            rows from 3968 on reach 3968 back: W = 4096.
+      row_spans_steps     rows 1000-1199 hold 1,000 slots each: over steps
+                          of 128 slots a row's run fills whole steps and
+                          crosses step boundaries;
+      bucket_128          every row reaches column 0, so one column's bucket
+                          holds a slot of every row of a step; rows
+                          1280-1535 are empty, so their flat tiles hold one
+                          step of padding;
+      padding_only_steps  rows 1024-1151 hold 200 slots each and rows
+                          1152-1279 none: beside one dense tile the other
+                          rectangular tiles fill their steps with padding;
+      w4096               rows from 3968 on reach 3968 back: W = 4096.
 
     Returns (ia, ja, ad, al, au)."""
     n = 8192 if case == "w4096" else 3000
@@ -307,6 +311,9 @@ def onehot_adversary_arrays(case, seed):
     width = np.full(n, 3, dtype=np.int64)
     if case == "row_spans_steps":
         width[1000:1200] = 1000
+    if case == "padding_only_steps":
+        width[1024:1152] = 200
+        width[1152:1280] = 0
     count = r - np.maximum(0, r - width)
     hi = np.repeat(r, count)
     lo = hi - 1 - (np.arange(hi.shape[0]) - np.repeat(np.cumsum(count)
@@ -325,6 +332,45 @@ def onehot_adversary_arrays(case, seed):
     au = _dyadic_values(rng, ja.shape[0])
     return ia, ja, np.full(n, 8.0, dtype=np.float32), al, au
 
+
+
+def onehot_step_geometry(pack, step):
+    """What the one-hot adversary cases aim at, read off a pack (the
+    rectangular ``BlockEll`` or the flat ``FlatBlockEll``) as rows of
+    ``step`` slots: the steps holding one row's real slots only, the
+    largest column bucket of a step, the steps of padding only and, on the
+    rectangular grid, the real slots of the emptiest and fullest tile."""
+    rows = pack.row_in_win.long().reshape(-1, step)
+    cols = pack.col_local.long().reshape(-1, step)
+    real = cols < pack.w_pad
+    per_step = torch.zeros((rows.shape[0], pack.w_pad + 1),
+                           dtype=torch.int64, device=cols.device)
+    per_step.scatter_add_(1, cols.clamp(max=pack.w_pad),
+                          torch.ones_like(cols))
+    geometry = {
+        "w_pad": pack.w_pad, "k_step": step, "steps": rows.shape[0],
+        "one_row_steps": int(((rows == rows[:, :1]) & real).all(1).sum()),
+        "largest_bucket": int(per_step[:, :pack.w_pad].max()),
+        "padding_only_steps": int((~real).all(1).sum())}
+    if hasattr(pack, "s"):                 # rectangular: NT tiles of S slots
+        tiles = real.reshape(pack.nt, -1).sum(1)
+        geometry["tile_real_slots"] = [int(tiles.min()), int(tiles.max())]
+    return geometry
+
+
+def onehot_case_holds(case, geometry) -> bool:
+    """Whether a pack's ``onehot_step_geometry`` has the feature its
+    ``onehot_adversary_arrays`` case aims at."""
+    if case == "row_spans_steps":          # a run fills whole steps
+        return geometry["one_row_steps"] > 1
+    if case == "bucket_128":               # and padding-only steps beside it
+        return (geometry["largest_bucket"] >= 128
+                and geometry["padding_only_steps"] > 0)
+    if case == "padding_only_steps":       # an empty tile beside a dense one
+        lo, hi = geometry["tile_real_slots"]
+        return (geometry["padding_only_steps"] > 0 and lo == 0
+                and hi > geometry["k_step"])
+    return geometry["w_pad"] == 4096
 
 def poisson_arrays(side):
     """The 5-point Laplacian on a side x side grid, the class of
@@ -603,8 +649,61 @@ def phase_kernels(seed: int):
     report += _flat_onehot_cases(seed, rng)
     report += _nnzsplit_kernel_cases(seed, rng)
     report += _assembly_kernel_cases(seed)
+    report += _rect_onehot_cases(seed, rng)
     emit("kernels", tolerance=f"exact on dyadic data, else {TOL} of the "
          "row's absolute sum", cases=report)
+
+
+def _exact_runs(name, runners, n, rng, widths=(1, 3, 64)):
+    """Every runner against its plain version on dyadic x at ``widths``,
+    exactly; returns the errors by kernel and width."""
+    errs = {}
+    for width in widths:
+        shape = (n,) if width == 1 else (n, width)
+        x = torch.from_numpy(dyadic_vector(rng, shape)).cuda()
+        for kname, (kernel, plain) in runners.items():
+            if ("spmv" in kname) != (width == 1):
+                continue
+            errs[f"{kname}/B{width}"] = _compare(
+                f"{name}/{kname}/B{width}", kernel, plain, x, exact=True)
+    return errs
+
+
+def _rect_onehot_cases(seed, rng):
+    """K1-K4 on rectangular packs that stress K3/K4's runs and buckets (see
+    ``onehot_adversary_arrays``), exact on dyadic data at B = 1, 3 and 64;
+    each case leaves K4 a partial column tile (tiles of 7 columns at
+    W = 1,152, of 2 at W = 3,200 and 4,096, of 21 at W = 384)."""
+    from repro_torch.core import blockell, csrc
+    from repro_torch.kernels.csrc_spmm import column_tile
+    cases = [
+        # name, generator case, dtype, idx, ks
+        ("rect_row_spans_steps", "row_spans_steps", torch.float32,
+         torch.int32, 1),
+        ("rect_bucket_128", "bucket_128", torch.float32, torch.int32, 8),
+        ("rect_padding_only_steps", "padding_only_steps", torch.float32,
+         torch.int32, 8),
+        ("rect_w4096_bf16_i16", "w4096", torch.bfloat16, torch.int16, 8),
+    ]
+    report = []
+    for name, case, vdt, idt, ks in cases:
+        arrays = onehot_adversary_arrays(case, seed + 60 + len(report))
+        n = arrays[0].shape[0] - 1
+        M = csrc.from_assembly(n, *arrays)
+        step = ks * 128
+        pack = blockell.pack(M, k_step=step, dtype=vdt,
+                             index_dtype=idt).to("cuda")
+        geometry = onehot_step_geometry(pack, step)
+        geometry["k4_column_tiles"] = {b: column_tile(pack.w_pad, b, 2)
+                                       for b in (3, 64)}
+        check(onehot_case_holds(case, geometry),
+              f"{name}: the pack misses its feature ({geometry})")
+        errs = _exact_runs(name, _runners(pack, ks), n, rng)
+        report.append({"case": name, "n": n, "nt": pack.nt, **geometry,
+                       "exact": True, "max_err": max(errs.values())})
+        del pack
+        torch.cuda.empty_cache()
+    return report
 
 
 def _flat_onehot_cases(seed, rng):
@@ -629,43 +728,15 @@ def _flat_onehot_cases(seed, rng):
         n = arrays[0].shape[0] - 1
         M = csrc.from_assembly(n, *arrays)
         pack = fl.pack_flat(M, ks=ks, dtype=vdt, index_dtype=idt).to("cuda")
-        rows = pack.row_in_win.long()
-        cols = pack.col_local.long()
-        real = cols < pack.w_pad
-        per_step = torch.zeros((pack.total_steps, pack.w_pad + 1),
-                               dtype=torch.int64, device=cols.device)
-        per_step.scatter_add_(1, cols.clamp(max=pack.w_pad),
-                              torch.ones_like(cols))
-        geometry = {
-            "w_pad": pack.w_pad, "total_steps": pack.total_steps,
-            "one_row_steps": int((rows == rows[:, :1]).all(1).sum()),
-            "largest_bucket": int(per_step[:, :pack.w_pad].max()),
-            "padding_only_steps": int((~real).all(1).sum()),
-            "k8_column_tiles": {b: column_tile(pack.w_pad, b, 2)
-                                for b in (3, 64)}}
-        if case == "row_spans_steps":
-            check(geometry["one_row_steps"] > 1,
-                  f"{name}: no step holds a single row's slots")
-        if case == "bucket_128":
-            check(geometry["largest_bucket"] >= 128
-                  and geometry["padding_only_steps"] > 0,
-                  f"{name}: no 128-slot bucket or padding-only step "
-                  f"({geometry})")
-        if case == "w4096":
-            check(pack.w_pad == 4096, f"{name}: window {pack.w_pad}")
-        runners = _runners(pack, ks)
-        errs = {}
-        for width in (1, 3, 64):
-            shape = (n,) if width == 1 else (n, width)
-            x = torch.from_numpy(dyadic_vector(rng, shape)).cuda()
-            for kname, (kernel, plain) in runners.items():
-                if ("spmv" in kname) != (width == 1):
-                    continue
-                errs[f"{kname}/B{width}"] = _compare(
-                    f"{name}/{kname}/B{width}", kernel, plain, x, exact=True)
+        geometry = onehot_step_geometry(pack, pack.step)
+        geometry["k8_column_tiles"] = {b: column_tile(pack.w_pad, b, 2)
+                                       for b in (3, 64)}
+        check(onehot_case_holds(case, geometry),
+              f"{name}: the pack misses its feature ({geometry})")
+        errs = _exact_runs(name, _runners(pack, ks), n, rng)
         report.append({"case": name, "n": n, "nt": pack.nt, **geometry,
                        "exact": True, "max_err": max(errs.values())})
-        del pack, runners
+        del pack
         torch.cuda.empty_cache()
     return report
 
@@ -1033,9 +1104,20 @@ def phase_solve(work: Workload, eng, spec):
                    "true_residual": bi_true, "seconds": round(bi_s, 4)})
 
 
+def _slot_order_check_s(pack) -> float:
+    """Host seconds of the slot-order check that building, loading or
+    converting a windowed pack makes, on a host copy of its index streams."""
+    from repro_torch.core.blockell import check_slot_order
+    rows, cols = pack.row_in_win.cpu(), pack.col_local.cpu()
+    t0 = time.perf_counter()
+    check_slot_order(rows, cols, pack.w_pad)
+    return round(time.perf_counter() - t0, 4)
+
+
 def phase_path_kernels(work: Workload, eng, spec, launches):
     """Each kernel of one path at the shapes its main run gave it: against
     its plain version, timed, beside its bound and one library call."""
+    from repro_torch.core import blockell
     from repro_torch.kernels import _build
     n = work.n
     ks = 8
@@ -1069,8 +1151,12 @@ def phase_path_kernels(work: Workload, eng, spec, launches):
             flops = 2 * (2 * work.M[mid].k) * nrhs
             extra["product_streamed_bytes"] = pack.streamed_bytes(nrhs)
         else:
-            bytes_moved = pack.streamed_bytes(nrhs)
+            # the windows' own bytes: the padded slots are the layout's
+            layout = blockell.padding_bytes(pack)
+            bytes_moved = pack.streamed_bytes(nrhs) - layout
             flops = (2 * work.M[mid].nnz - n) * nrhs
+            extra["layout_bytes"] = layout
+            extra["slot_order_check_s"] = _slot_order_check_s(pack)
         t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
         t_ops = flops / FP32_FLOPS * 1e3
         k = _build.KERNELS[kname]

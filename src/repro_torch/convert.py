@@ -13,7 +13,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from repro_torch.core.blockell import BlockEll
+from repro_torch.core import blockell
 from repro_torch.core.csrc import CSRC, _t
 from repro_torch.core.plan import ExecutionPlan
 
@@ -36,20 +36,24 @@ def csrc_from_arrays(*, n: int, m: int, ad, ia, ja, al, au, iar, jar, ar,
 def blockell_from_arrays(*, n: int, tm: int, nt: int, w_pad: int, s: int,
                          vals_l, vals_u, col_local, row_in_win, ad,
                          num_symmetric: bool, pad_ratio: float,
-                         value_dtype: str = "float32") -> BlockEll:
-    """A :class:`BlockEll` from a foreign pack.  Value streams arrive as
-    float32 arrays and are narrowed to ``value_dtype`` ('float32' or
-    'bfloat16'); index streams keep the integer dtype they arrive in."""
+                         value_dtype: str = "float32") -> blockell.BlockEll:
+    """A :class:`~repro_torch.core.blockell.BlockEll` from a foreign pack.
+    Value streams arrive as float32 arrays and are narrowed to
+    ``value_dtype`` ('float32' or 'bfloat16'); index streams keep the
+    integer dtype they arrive in.  The slot order is checked here
+    (``blockell.check_slot_order``): a malformed pack raises ValueError."""
     vdt = _VALUE_DTYPES[value_dtype]
 
     def values(a):
         return _tensor(a, np.float32).to(vdt)
 
+    col_t, row_t = _tensor(col_local), _tensor(row_in_win)
+    blockell.check_slot_order(row_t, col_t, int(w_pad))
     vl = values(vals_l)
-    return BlockEll(
+    return blockell.BlockEll(
         n=int(n), tm=int(tm), nt=int(nt), w_pad=int(w_pad), s=int(s),
         vals_l=vl, vals_u=vl if num_symmetric else values(vals_u),
-        col_local=_tensor(col_local), row_in_win=_tensor(row_in_win),
+        col_local=col_t, row_in_win=row_t,
         ad=values(ad), num_symmetric=bool(num_symmetric),
         pad_ratio=float(pad_ratio))
 

@@ -14,8 +14,9 @@ i - band <= j <= i.
 
 Slots are padded per row-tile to a common count S (multiple of the k-step),
 ELL-style.  Padded slots carry value 0, the sentinel column W and the row
-W-1; a kernel must add nothing for the column side of such a slot, and adds
-0·x to the tile's last row for the row side.
+W-1, and trail every real slot of their tile (checked by
+:func:`check_slot_order`); the one-hot kernels add nothing for them on
+either side.  Their bytes are the layout's (:func:`padding_bytes`).
 
 Layout (NT = ceil(n / TM) row tiles, S slots per tile):
 
@@ -101,6 +102,43 @@ class BlockEll:
         return b
 
 
+def _padding(col_local: torch.Tensor, w_pad: int) -> torch.Tensor:
+    """The padded slots: those whose column lies outside [0, W)."""
+    return (col_local < 0) | (col_local >= w_pad)
+
+
+def padding_bytes(pack_) -> int:
+    """Bytes of ``pack_.streamed_bytes(nrhs)`` (a :class:`BlockEll` or a
+    ``FlatBlockEll``) that its padded slots take in the value and index
+    streams: the layout's cost, not the product's.  The product itself
+    moves ``streamed_bytes(nrhs) - padding_bytes``."""
+    streams = [pack_.vals_l, pack_.col_local, pack_.row_in_win]
+    if not pack_.num_symmetric:
+        streams.append(pack_.vals_u)
+    pad = int(_padding(pack_.col_local, pack_.w_pad).sum())
+    return pad * sum(a.element_size() for a in streams)
+
+
+def check_slot_order(row_in_win: torch.Tensor, col_local: torch.Tensor,
+                     w_pad: int) -> None:
+    """Raise ValueError unless every row of the slot streams — a row tile's
+    S slots on the rectangular grid, a k-step on the flat grid — keeps
+    ``row_in_win`` non-decreasing and its padding (a column outside
+    [0, W)) after all of its real slots.  The one-hot kernels (K3/K4,
+    K7/K8) find a window row's real slots as one run of the staged k-step;
+    every packer writes the slots row-major, padding (row W-1, column W)
+    last.  Called where a pack is built, loaded or converted, never by a
+    value refresh or a device move: they change no index stream."""
+    rows = row_in_win.reshape(row_in_win.shape[0], -1)
+    if bool((rows[:, 1:] < rows[:, :-1]).any()):
+        raise ValueError("row_in_win must be non-decreasing within each "
+                         "tile and k-step (row-major slots)")
+    pad = _padding(col_local.reshape(col_local.shape[0], -1), w_pad)
+    if bool((pad[:, :-1] & ~pad[:, 1:]).any()):
+        raise ValueError("padding slots (column outside the window) must "
+                         "follow every real slot of a tile and k-step")
+
+
 def _slot_positions(ros: np.ndarray, tm: int, nt: int):
     """(tile, position-in-tile) of every lower slot.  Slots are row-major,
     so a tile's slots are consecutive and the position is the slot index
@@ -165,11 +203,13 @@ def pack(M: CSRC, tm: int = 128, k_step: int = 1024,
         vu_t = torch.from_numpy(vals_u).to(dtype)
 
     k = max(1, int(ja.shape[0]))
+    col_t = torch.from_numpy(col_local).to(index_dtype)
+    row_t = torch.from_numpy(row_in_win).to(index_dtype)
+    check_slot_order(row_t, col_t, w_pad)
     return BlockEll(
         n=n, tm=tm, nt=nt, w_pad=w_pad, s=s,
         vals_l=vl_t, vals_u=vu_t,
-        col_local=torch.from_numpy(col_local).to(index_dtype),
-        row_in_win=torch.from_numpy(row_in_win).to(index_dtype),
+        col_local=col_t, row_in_win=row_t,
         ad=torch.from_numpy(ad).to(dtype),
         num_symmetric=bool(M.numerically_symmetric),
         pad_ratio=float(nt * s) / k,

@@ -336,7 +336,7 @@ def _kernel_save(sched):
 
 
 def _kernel_load(meta, z) -> dict:
-    from .blockell import BlockEll
+    from . import blockell
     pm = meta["pack"]
     vdt = {"float32": torch.float32,
            "bfloat16": torch.bfloat16}[pm.get("value_dtype", "float32")]
@@ -347,13 +347,14 @@ def _kernel_load(meta, z) -> dict:
 
     num_symmetric = bool(pm["num_symmetric"])
     vals_l = values("pack_vals_l")
-    return {"pack": BlockEll(
+    col_local = torch.from_numpy(np.ascontiguousarray(z["pack_col_local"]))
+    row_in_win = torch.from_numpy(np.ascontiguousarray(z["pack_row_in_win"]))
+    blockell.check_slot_order(row_in_win, col_local, pm["w_pad"])
+    return {"pack": blockell.BlockEll(
         n=pm["n"], tm=pm["tm"], nt=pm["nt"], w_pad=pm["w_pad"], s=pm["s"],
         vals_l=vals_l,
         vals_u=vals_l if num_symmetric else values("pack_vals_u"),
-        col_local=torch.from_numpy(np.ascontiguousarray(z["pack_col_local"])),
-        row_in_win=torch.from_numpy(
-            np.ascontiguousarray(z["pack_row_in_win"])),
+        col_local=col_local, row_in_win=row_in_win,
         ad=values("pack_ad"),
         num_symmetric=num_symmetric,
         pad_ratio=float(pm["pad_ratio"]),

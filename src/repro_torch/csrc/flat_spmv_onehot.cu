@@ -19,8 +19,8 @@
 // x reaches only the rows that reference it).
 //
 // Before: one thread per window position scanned every slot of every step
-// (K3's body, still in window_kernels.cuh), S·W compares per step — 5.1e10
-// at the skewed main shape, operations at 75x its bytes bound.
+// (a scan body since removed), S·W compares per step — 5.1e10 at the
+// skewed main shape, 30.05 ms, operations at 75x its bytes bound.
 //
 // Bound on this card: neither bytes nor operations but a block's latency
 // through each step — the global loads of the staging, the barriers of the

@@ -1,6 +1,7 @@
-// The four window kernels of the block-ELL CSRC products, shared by the
-// rectangular grid (K1-K4, blockell_*.cu) and the flat grid (K5-K8,
-// flat_*.cu).
+// The stream bodies of the block-ELL CSRC window products — K1/K2 on the
+// rectangular grid (blockell_*_stream.cu), K5/K6 on the flat grid
+// (flat_*_stream.cu) — and the tile maps both grids share with the one-hot
+// kernels' run-and-bucket body (window_runs.cuh: K3/K4, K7/K8).
 //
 // Both grids compute, per row tile b, the W-wide output window of the tile
 // from the slots the tile owns; they differ only in which slots those are:
@@ -19,7 +20,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kChunk = 512;   // slots staged per pass through shared memory
 
 // Slots [base, base + count) of the streams belong to one row tile.
 struct TileSlots {
@@ -202,221 +202,6 @@ int launch_spmm_stream(const void* vals_l, const void* vals_u,
         static_cast<const I*>(col), static_cast<const I*>(row),              \
         static_cast<const V*>(ad), static_cast<const float*>(x),             \
         static_cast<float*>(out), tiles, tm, w_pad, n, nrhs, bt, num_sym);   \
-  } while (0)
-  BLOCKELL_DISPATCH(val_bf16, idx_i16, LAUNCH);
-#undef LAUNCH
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ---------------------------------------------------------------------------
-// One-hot SpMV: one thread per window position, fixed-order scan (K3, K7)
-// ---------------------------------------------------------------------------
-
-template <typename V, typename I, typename Tiles>
-__global__ void __launch_bounds__(kThreads)
-spmv_onehot_kernel(const V* __restrict__ vals_l, const V* __restrict__ vals_u,
-                   const I* __restrict__ col, const I* __restrict__ row,
-                   const V* __restrict__ ad, const float* __restrict__ x,
-                   float* __restrict__ out, Tiles tiles, int k_step, int tm,
-                   int w_pad, int n, int num_sym) {
-  extern __shared__ float xw[];            // (W,) x window
-  __shared__ int2 rc[kChunk];              // (row, col) of the staged slots
-  __shared__ float2 lu[kChunk];            // (lower, upper) values
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-
-  for (int w = tid; w < w_pad; w += kThreads) {
-    long long g = window_row(b, tm, w_pad, w, n);
-    xw[w] = g >= 0 ? x[g] : 0.0f;
-  }
-  __syncthreads();
-
-  const TileSlots ts = tiles(b);
-  const size_t base = ts.base;
-  const int s = ts.count;
-  const int d0 = w_pad - tm;
-  for (int w0 = 0; w0 < w_pad; w0 += kThreads) {
-    const int w = w0 + tid;
-    const bool active = w < w_pad;
-    float result = 0.0f;
-    for (int step0 = 0; step0 < s; step0 += k_step) {
-      const int step1 = min(step0 + k_step, s);
-      float win = 0.0f;
-      for (int c0 = step0; c0 < step1; c0 += kChunk) {
-        const int len = min(kChunk, step1 - c0);
-        __syncthreads();   // the previous chunk has been consumed
-        for (int i = tid; i < len; i += kThreads) {
-          const size_t p = base + c0 + i;
-          const float vl = load_value(vals_l, p);
-          rc[i] = make_int2(load_index(row, p), load_index(col, p));
-          lu[i] = make_float2(vl, num_sym ? vl : load_value(vals_u, p));
-        }
-        __syncthreads();
-        if (active) {
-          for (int i = 0; i < len; ++i) {
-            const int2 q = rc[i];
-            if (q.x == w) {
-              const float xg = static_cast<unsigned>(q.y) <
-                                       static_cast<unsigned>(w_pad)
-                                   ? xw[q.y]
-                                   : 0.0f;
-              win += lu[i].x * xg;
-            }
-            if (q.y == w) {
-              const float xi = static_cast<unsigned>(q.x) <
-                                       static_cast<unsigned>(w_pad)
-                                   ? xw[q.x]
-                                   : 0.0f;
-              win += lu[i].y * xi;
-            }
-          }
-        }
-      }
-      if (step0 == 0) {
-        float diag = 0.0f;
-        if (active && w >= d0) {
-          diag = load_value(ad, static_cast<size_t>(b) * tm + (w - d0)) * xw[w];
-        }
-        result = diag + win;
-      } else {
-        result += win;
-      }
-    }
-    if (active) out[static_cast<size_t>(b) * w_pad + w] = result;
-  }
-}
-
-template <typename Tiles>
-int launch_spmv_onehot(const void* vals_l, const void* vals_u,
-                       const void* col, const void* row, const void* ad,
-                       const void* x, void* out, Tiles tiles, int nt,
-                       int k_step, int tm, int w_pad, int n, int num_sym,
-                       int val_bf16, int idx_i16, void* stream) {
-  const size_t smem = static_cast<size_t>(w_pad) * sizeof(float);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define LAUNCH(V, I)                                                         \
-  do {                                                                       \
-    cudaError_t e =                                                          \
-        allow_dynamic_smem(spmv_onehot_kernel<V, I, Tiles>, smem);           \
-    if (e != cudaSuccess) return static_cast<int>(e);                        \
-    spmv_onehot_kernel<V, I, Tiles><<<nt, kThreads, smem, st>>>(             \
-        static_cast<const V*>(vals_l), static_cast<const V*>(vals_u),        \
-        static_cast<const I*>(col), static_cast<const I*>(row),              \
-        static_cast<const V*>(ad), static_cast<const float*>(x),             \
-        static_cast<float*>(out), tiles, k_step, tm, w_pad, n, num_sym);     \
-  } while (0)
-  BLOCKELL_DISPATCH(val_bf16, idx_i16, LAUNCH);
-#undef LAUNCH
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ---------------------------------------------------------------------------
-// One-hot SpMM: one thread per (window position, column) (K4, K8)
-// ---------------------------------------------------------------------------
-
-template <typename V, typename I, typename Tiles>
-__global__ void __launch_bounds__(kThreads)
-spmm_onehot_kernel(const V* __restrict__ vals_l, const V* __restrict__ vals_u,
-                   const I* __restrict__ col, const I* __restrict__ row,
-                   const V* __restrict__ ad, const float* __restrict__ x,
-                   float* __restrict__ out, Tiles tiles, int k_step, int tm,
-                   int w_pad, int n, int nrhs, int bt, int num_sym) {
-  extern __shared__ float xw[];            // (W, cols) x window
-  __shared__ int2 rc[kChunk];              // (row, col) of the staged slots
-  __shared__ float2 lu[kChunk];            // (lower, upper) values
-  const int b = blockIdx.x;
-  const int j0 = blockIdx.y * bt;
-  const int cols = min(bt, nrhs - j0);
-  const int tid = threadIdx.x;
-
-  const int items = w_pad * cols;
-  for (int q = tid; q < items; q += kThreads) {
-    const int w = q / cols;
-    const int j = q - w * cols;
-    long long g = window_row(b, tm, w_pad, w, n);
-    xw[q] = g >= 0 ? x[static_cast<size_t>(g) * nrhs + j0 + j] : 0.0f;
-  }
-  __syncthreads();
-
-  const TileSlots ts = tiles(b);
-  const size_t base = ts.base;
-  const int s = ts.count;
-  const int d0 = w_pad - tm;
-  for (int q0 = 0; q0 < items; q0 += kThreads) {
-    const int q = q0 + tid;
-    const bool active = q < items;
-    const int w = active ? q / cols : -1;
-    const int j = active ? q - w * cols : 0;
-    float result = 0.0f;
-    for (int step0 = 0; step0 < s; step0 += k_step) {
-      const int step1 = min(step0 + k_step, s);
-      float win = 0.0f;
-      for (int c0 = step0; c0 < step1; c0 += kChunk) {
-        const int len = min(kChunk, step1 - c0);
-        __syncthreads();   // the previous chunk has been consumed
-        for (int i = tid; i < len; i += kThreads) {
-          const size_t p = base + c0 + i;
-          const float vl = load_value(vals_l, p);
-          rc[i] = make_int2(load_index(row, p), load_index(col, p));
-          lu[i] = make_float2(vl, num_sym ? vl : load_value(vals_u, p));
-        }
-        __syncthreads();
-        if (active) {
-          for (int i = 0; i < len; ++i) {
-            const int2 m = rc[i];
-            if (m.x == w) {
-              const float xg = static_cast<unsigned>(m.y) <
-                                       static_cast<unsigned>(w_pad)
-                                   ? xw[m.y * cols + j]
-                                   : 0.0f;
-              win += lu[i].x * xg;
-            }
-            if (m.y == w) {
-              const float xi = static_cast<unsigned>(m.x) <
-                                       static_cast<unsigned>(w_pad)
-                                   ? xw[m.x * cols + j]
-                                   : 0.0f;
-              win += lu[i].y * xi;
-            }
-          }
-        }
-      }
-      if (step0 == 0) {
-        float diag = 0.0f;
-        if (active && w >= d0) {
-          diag = load_value(ad, static_cast<size_t>(b) * tm + (w - d0)) * xw[q];
-        }
-        result = diag + win;
-      } else {
-        result += win;
-      }
-    }
-    if (active) {
-      out[(static_cast<size_t>(b) * w_pad + w) * nrhs + j0 + j] = result;
-    }
-  }
-}
-
-template <typename Tiles>
-int launch_spmm_onehot(const void* vals_l, const void* vals_u,
-                       const void* col, const void* row, const void* ad,
-                       const void* x, void* out, Tiles tiles, int nt,
-                       int k_step, int tm, int w_pad, int n, int nrhs, int bt,
-                       int num_sym, int val_bf16, int idx_i16, void* stream) {
-  const size_t smem = static_cast<size_t>(w_pad) * bt * sizeof(float);
-  const dim3 grid(nt, (nrhs + bt - 1) / bt);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define LAUNCH(V, I)                                                         \
-  do {                                                                       \
-    cudaError_t e =                                                          \
-        allow_dynamic_smem(spmm_onehot_kernel<V, I, Tiles>, smem);           \
-    if (e != cudaSuccess) return static_cast<int>(e);                        \
-    spmm_onehot_kernel<V, I, Tiles><<<grid, kThreads, smem, st>>>(           \
-        static_cast<const V*>(vals_l), static_cast<const V*>(vals_u),        \
-        static_cast<const I*>(col), static_cast<const I*>(row),              \
-        static_cast<const V*>(ad), static_cast<const float*>(x),             \
-        static_cast<float*>(out), tiles, k_step, tm, w_pad, n, nrhs, bt,     \
-        num_sym);                                                            \
   } while (0)
   BLOCKELL_DISPATCH(val_bf16, idx_i16, LAUNCH);
 #undef LAUNCH

@@ -1,6 +1,6 @@
-// The run-and-bucket body of the one-hot window products: K7 (x (n,)) and
-// K8 (X (n, B)) on the flat grid.  Templated on the tile map like the bodies
-// of window_kernels.cuh, so the rectangular grid (RectTiles) can take it too.
+// The run-and-bucket body of the one-hot window products: K3 (x (n,)) and
+// K4 (X (n, B)) on the rectangular grid (RectTiles), K7 and K8 on the flat
+// grid (FlatTiles) — one template over the tile maps of window_kernels.cuh.
 //
 // Per k-step of S slots the TPU body contracts (S, W) one-hot masks of the
 // slots' rows and columns:
@@ -12,10 +12,14 @@
 // Each position meets few of the S slots, so the body indexes the staged
 // step instead of scanning it:
 //
-//   row side     a step's rows never decrease (slots are row-major; checked
-//                wherever a pack is built, loaded or converted), so row w's
-//                slots are one run [lo, hi); the slots that open and close
-//                a run write its bounds;
+//   row side     a step's rows never decrease and its padding (column
+//                sentinel W, row W-1) follows its real slots (slots are
+//                row-major, padding last; both checked wherever a pack is
+//                built, loaded or converted), so row w's real slots are one
+//                run [lo, hi); the real slots that open and close a run
+//                write its bounds.  Padding joins no run: its row-side
+//                product is vl·0 — x reads 0 at the sentinel — and it would
+//                only lengthen row W-1's run by the tile's padding;
 //   column side  a stable counting sort of the step's slots by column gives
 //                column w its bucket of slots, in slot order.
 //
@@ -191,16 +195,21 @@ __device__ void sort_step_by_column(const RunsSmem& m, int len, int w_pad) {
   __syncthreads();
 }
 
-// The staged rows never decrease, so each row's slots are one run: the
-// slot that opens a run writes run_lo, the one that closes it run_hi.
+// The staged rows never decrease and padding follows the real slots, so each
+// row's real slots (column in the window; the padding's sentinel column W is
+// not) are one run: the real slot that opens a run writes run_lo, the one
+// that closes it (the last real slot of its row) run_hi.
 // m.run_lo / m.run_hi must be zero on entry.
 __device__ __forceinline__ void mark_row_runs(const RunsSmem& m, int len,
                                               int w_pad) {
   for (int i = threadIdx.x; i < len; i += kThreads) {
     const int r = m.rows[i];
-    if (!in_window(r, w_pad)) continue;
+    if (!in_window(r, w_pad) || !in_window(m.cols[i], w_pad)) continue;
     if (i == 0 || m.rows[i - 1] != r) m.run_lo[r] = i;
-    if (i == len - 1 || m.rows[i + 1] != r) m.run_hi[r] = i + 1;
+    if (i == len - 1 || m.rows[i + 1] != r ||
+        !in_window(m.cols[i + 1], w_pad)) {
+      m.run_hi[r] = i + 1;
+    }
   }
 }
 

@@ -10,8 +10,11 @@ bytes per product grow far slower than the flops.
             Bound by bytes; (W, BT) x window and accumulator in shared
             memory, the B axis cut into column tiles of BT columns.
   'onehot'  K4, csrc/blockell_spmm_onehot.cu — replaces
-            kernels/csrc_spmm.py::_kernel.  Bound by operations; one thread
-            per (window position, column), fixed summation order.
+            kernels/csrc_spmm.py::_kernel.  K3's run-and-bucket body
+            (csrc/window_runs.cuh) with the products formed per column: one
+            block per (row tile, column tile), the (W, BT) x and result
+            windows in shared memory, a fixed summation order, no float
+            atomics; at B = 1 it equals K3 bit for bit.
 
 The plain PyTorch versions (:func:`spmm_windows_stream_plain`,
 :func:`spmm_windows_onehot_plain`) are taken only for a CPU tensor; a CUDA
@@ -84,7 +87,7 @@ def spmm_windows_onehot_cuda(pack: BlockEll, X: torch.Tensor,
     with torch.cuda.device(X.device):
         K4.launch(*pointers, X.data_ptr(), out.data_ptr(),
                   pack.nt, pack.s, k_step, pack.tm, pack.w_pad, pack.n, nrhs,
-                  column_tile(pack.w_pad, nrhs, 1), *flags)
+                  column_tile(pack.w_pad, nrhs, 2), *flags)
     return out
 
 

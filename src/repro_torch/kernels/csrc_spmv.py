@@ -14,9 +14,15 @@ Two kernels compute the (NT, W) windows, selected by ``variant``:
             Bound by bytes on the card; one block per tile, x window and
             accumulator in shared memory, shared-memory atomic adds.
   'onehot'  K3, csrc/blockell_spmv_onehot.cu — replaces
-            kernels/csrc_spmv.py::_kernel.  Bound by operations (O(S·W)
-            compares per tile); one thread per window position, a fixed
-            summation order, no atomics.
+            kernels/csrc_spmv.py::_kernel.  One block per tile over the
+            tile's k-steps, the run-and-bucket body of csrc/window_runs.cuh:
+            per step each window row sums its run of real slots (a tile's
+            rows never decrease and its padding trails) and each column its
+            bucket from a stable counting sort by column, in slot order, and
+            the window takes the two sums — the TPU body's order, O(S + W)
+            work per step, no float atomics.  Bound by a block's latency
+            per step.  The slot order is checked wherever a pack is built,
+            loaded or converted (``blockell.check_slot_order``).
 
 Each has its plain PyTorch version beside it
 (:func:`spmv_windows_stream_plain`, :func:`spmv_windows_onehot_plain`),
@@ -26,7 +32,9 @@ launches.
 
 Summation order: K1 sums with atomics, so the order inside a window
 changes from run to run — exact on dyadic values, and within 1e-5 of the
-row's absolute sum otherwise.  K3 is identical from run to run.
+row's absolute sum otherwise.  K3 is identical from run to run.  K3 takes
+a k-step of at most 65,535 slots whose shared memory (``runs_smem_bytes``
+in window_runs.cuh) fits the card's 227 KB; a larger one raises at launch.
 """
 from __future__ import annotations
 

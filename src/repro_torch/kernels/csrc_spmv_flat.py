@@ -29,11 +29,12 @@ Kernels, selected by ``variant``:
             — replace ::_kernel / ::_kernel_mm.  One block per tile (and
             column tile) over the tile's steps, the body of
             csrc/window_runs.cuh: per step, each window row sums its run of
-            slots (the step's rows never decrease) and each column its
+            real slots (the step's rows never decrease) and each column its
             bucket from a stable counting sort by column, in slot order,
             and the window takes the two sums — the TPU body's order, no
-            float atomics, bit-identical reruns.  The row order is checked
-            with the step ranges (:func:`check_step_rows`).
+            float atomics, bit-identical reruns.  The slot order (rows
+            non-decreasing, padding last) is checked with the step ranges
+            (``blockell.check_slot_order``, shared with K3/K4's packs).
 
 Their plain PyTorch versions — the fused gather + ``index_add_`` form
 (``csrc_spmv_stream.flat_windows_fused``) and the step-by-step one-hot form
@@ -48,7 +49,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core.blockell import _round_up, overlap_add, pad_x
+from repro_torch.core.blockell import (_round_up, check_slot_order,
+                                       overlap_add, pad_x)
 from repro_torch.core.csrc import CSRC, _np, bandwidth, row_of_slot
 from repro_torch.core.plan import LANES, VARIANTS
 from . import _build
@@ -105,17 +107,6 @@ def step_ranges(tile_of_step, first_of_tile, nt: int) -> torch.Tensor:
     return torch.from_numpy(starts.astype(np.int32))
 
 
-def check_step_rows(row_in_win: torch.Tensor) -> None:
-    """Raise ValueError unless ``row_in_win`` (total, step) never decreases
-    inside a k-step.  K7/K8 find the slots of a window row as one run of the
-    staged step; every packer writes the slots row-major, padding (row W-1)
-    last."""
-    rows = row_in_win.reshape(row_in_win.shape[0], -1)
-    if bool((rows[:, 1:] < rows[:, :-1]).any()):
-        raise ValueError("row_in_win must be non-decreasing within each "
-                         "k-step (row-major slots)")
-
-
 @dataclasses.dataclass(frozen=True)
 class FlatBlockEll:
     n: int
@@ -139,7 +130,7 @@ class FlatBlockEll:
 
     def __post_init__(self):
         if self.step_start is None:
-            check_step_rows(self.row_in_win)
+            check_slot_order(self.row_in_win, self.col_local, self.w_pad)
             starts = step_ranges(self.tile_of_step, self.first_of_tile,
                                  self.nt)
             object.__setattr__(self, "step_start",

@@ -10,7 +10,10 @@ import torch
 from repro.core import blockell as jbe
 from repro.core import csrc as jcsrc
 from repro_torch.core import blockell as tbe
+from repro_torch.core import csrc as tcsrc
+from repro_torch.kernels import csrc_spmv_flat as tfl
 
+from _smoke import chip_smoke
 from test_torch_parity_helpers import (MATRICES, assert_pack_equal, np32,
                                        to_torch_csrc, to_torch_pack)
 
@@ -51,6 +54,56 @@ def test_pack_sentinels_and_alias():
     extra = (pt.n_pad + pt.w_pad) * 4 + pt.nt * pt.w_pad * 4
     assert pt.streamed_bytes(nrhs=8) == pt.streamed_bytes() + 7 * extra
 
+
+
+@pytest.mark.parametrize("grid", ["rect", "flat"])
+@pytest.mark.parametrize("dt", ["f32_i32", "bf16_i16"])
+@pytest.mark.parametrize("name", ["fem_band", "fem_band_sym", "empty_rows"])
+def test_padding_bytes_count_the_layout_not_the_product(name, dt, grid):
+    """``streamed_bytes`` less ``padding_bytes`` is what one product must
+    move — each lower slot's values and indices once (one value stream
+    when numerically symmetric), the diagonal, x and the window partials —
+    and the padded slots' share is the layout's."""
+    _, _, tv, ti = DTYPES[dt]
+    Mt = to_torch_csrc(MATRICES[name]())
+    if grid == "rect":
+        pt = tbe.pack(Mt, tm=32, k_step=256, dtype=tv, index_dtype=ti)
+    else:
+        pt = tfl.pack_flat(Mt, tm=32, ks=2, dtype=tv, index_dtype=ti)
+    per_slot = ((1 if pt.num_symmetric else 2) * pt.vals_l.element_size()
+                + 2 * pt.col_local.element_size())
+    k = int(Mt.ja.shape[0])
+    padded = pt.col_local.numel() - k
+    assert padded > 0
+    assert tbe.padding_bytes(pt) == padded * per_slot
+    for nrhs in (1, 3):
+        rest = (pt.ad.numel() * pt.ad.element_size()
+                + ((pt.n_pad + pt.w_pad) + pt.nt * pt.w_pad) * 4 * nrhs)
+        assert (pt.streamed_bytes(nrhs) - tbe.padding_bytes(pt)
+                == k * per_slot + rest)
+
+
+@pytest.mark.parametrize("grid,case,ks", [
+    ("rect", "row_spans_steps", 1), ("rect", "bucket_128", 8),
+    ("rect", "padding_only_steps", 8), ("rect", "w4096", 8),
+    ("flat", "row_spans_steps", 1), ("flat", "bucket_128", 8),
+    ("flat", "w4096", 8)])
+def test_onehot_adversary_packs_have_their_features(grid, case, ks):
+    """``chip_smoke.py``'s adversary matrices for the one-hot kernels
+    (K3/K4 rectangular, K7/K8 flat; shared with the card tests) give packs
+    with the feature each case aims at, in the slot order the kernels need
+    (``check_slot_order`` passed where they were built)."""
+    sm = chip_smoke()
+    arrays = sm.onehot_adversary_arrays(case, seed=0)
+    M = tcsrc.from_assembly(arrays[0].shape[0] - 1, *arrays)
+    if grid == "rect":
+        pack, step = tbe.pack(M, k_step=ks * 128), ks * 128
+    else:
+        pack = tfl.pack_flat(M, ks=ks)
+        step = pack.step
+    geometry = sm.onehot_step_geometry(pack, step)
+    assert sm.onehot_case_holds(case, geometry), geometry
+    assert tbe.padding_bytes(pack) > 0
 
 def test_pack_gates_raise_like_reference():
     Mj = jcsrc.fem_band(300, 200, seed=1, fill=0.1)

@@ -13,6 +13,7 @@ from repro.core import schedule as jsched
 from repro.core import tuner as jtuner
 from repro.kernels import ops as jops
 from repro_torch import convert
+from repro_torch.core import blockell as tbe
 from repro_torch.core import partition as tpart
 from repro_torch.core import paths as tpaths
 from repro_torch.core import plan as tplan
@@ -20,8 +21,9 @@ from repro_torch.core import schedule as tsched
 from repro_torch.core import tuner as ttuner
 from repro_torch.kernels import ops as tops
 
-from test_torch_parity_helpers import (MATRICES, assert_pack_equal, dyadic,
-                                       dyadic_x, to_torch_csrc)
+from test_torch_parity_helpers import (MATRICES, PACK_ARRAYS,
+                                       assert_pack_equal, dyadic, dyadic_x,
+                                       np32, to_torch_csrc)
 
 PLAN_KW = [
     {},
@@ -253,3 +255,126 @@ def test_schedule_for_refreshes_same_structure(tmp_path):
     assert s2.value_digest != s1.value_digest
     assert list(cache.schedules) == [s2.key()]     # superseded generation
     assert tsched.schedule_for(Mt2, plan, cache=cache) is s2
+
+
+# (tm, k_step_sublanes, values, indices) of the packs whose slot order the
+# one-hot kernels K3/K4 rely on
+PACK_SHAPES = [(128, 8, "float32", "int32"), (32, 2, "bfloat16", "int16"),
+               (8, 1, "float32", "int16")]
+_TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                 "int32": torch.int32, "int16": torch.int16}
+
+
+def _reference_kernel_npz(path, tm, ks, vdt, idt):
+    """A ``kernel``-path schedule npz written by the JAX package."""
+    Mj = dyadic(MATRICES["fem_band"]())
+    sj = jsched.build_schedule(Mj, jplan.ExecutionPlan(
+        path="kernel", tm=tm, k_step_sublanes=ks, index_dtype=idt,
+        value_dtype=vdt))
+    sj.save_npz(path)
+    return sj
+
+
+def _assert_slot_order(pack):
+    rows = pack.row_in_win.to(torch.int64)
+    assert bool((rows[:, 1:] >= rows[:, :-1]).all())
+    real = pack.col_local.to(torch.int64) < pack.w_pad
+    assert not bool((real[:, 1:] & ~real[:, :-1]).any())
+
+
+@pytest.mark.parametrize("source", ["pack", "load_npz",
+                                    "blockell_from_arrays"])
+def test_rows_never_decrease_inside_a_tile(source, tmp_path):
+    """K3/K4 find a window row's real slots as one run of the staged k-step:
+    every rectangular pack built, loaded from a reference-written npz or
+    converted keeps its rows non-decreasing inside each tile (so inside
+    every k-step a plan may pick) and its padding after its real slots."""
+    packs = []
+    for tm, ks, vdt, idt in PACK_SHAPES:
+        if source == "pack":
+            packs += [tbe.pack(to_torch_csrc(make()), tm=tm, k_step=ks * 128,
+                               dtype=_TORCH_DTYPES[vdt],
+                               index_dtype=_TORCH_DTYPES[idt])
+                      for make in MATRICES.values()]
+        elif source == "load_npz":
+            f = str(tmp_path / f"kernel_{tm}_{ks}.npz")
+            _reference_kernel_npz(f, tm, ks, vdt, idt)
+            packs.append(tsched.SpmvSchedule.load_npz(f).pack)
+        else:
+            f = str(tmp_path / f"kernel_{tm}_{ks}.npz")
+            pj = _reference_kernel_npz(f, tm, ks, vdt, idt).pack
+            packs.append(convert.blockell_from_arrays(
+                n=pj.n, tm=pj.tm, nt=pj.nt, w_pad=pj.w_pad, s=pj.s,
+                num_symmetric=pj.num_symmetric, pad_ratio=pj.pad_ratio,
+                value_dtype=str(pj.vals_l.dtype),
+                **{f: np32(getattr(pj, f)) for f in PACK_ARRAYS}))
+    assert len(packs) >= 3
+    for pack in packs:
+        assert (pack.col_local == pack.w_pad).any()        # padding present
+        _assert_slot_order(pack)
+
+
+def _malformed(pj, defect):
+    """The arrays of reference pack ``pj`` with one tile broken: its rows
+    shuffled, or one padding slot (row W-1) moved in front of the real
+    slots of the tile's last row W-1, its rows still non-decreasing."""
+    arrays = {f: np32(getattr(pj, f)) for f in PACK_ARRAYS}
+    rows, cols = arrays["row_in_win"], arrays["col_local"]
+    last = (rows == pj.w_pad - 1) & (cols < pj.w_pad)
+    t = int(np.flatnonzero(last.any(1) & (cols == pj.w_pad).any(1))[0])
+    if defect == "rows_shuffled":
+        perm = np.random.default_rng(0).permutation(pj.s)
+    else:
+        pad = int(np.flatnonzero(cols[t] == pj.w_pad)[0])
+        at = int(np.flatnonzero(last[t])[0])
+        perm = np.insert(np.delete(np.arange(pj.s), pad), at, pad)
+    for f in ("row_in_win", "col_local", "vals_l", "vals_u"):
+        arrays[f] = arrays[f].copy()
+        arrays[f][t] = arrays[f][t][perm]
+    decreasing = (np.diff(arrays["row_in_win"][t].astype(np.int64)) < 0)
+    assert decreasing.any() == (defect == "rows_shuffled")
+    return arrays
+
+
+@pytest.mark.parametrize("defect", ["rows_shuffled", "padding_first"])
+@pytest.mark.parametrize("source", ["blockell_from_arrays", "load_npz"])
+def test_malformed_tile_raises_before_any_launch(source, defect, tmp_path):
+    """A pack with one tile's rows shuffled, or a padding slot before a real
+    one, raises ValueError where it is converted or loaded — on the CPU,
+    before a kernel could take it."""
+    f = str(tmp_path / "kernel.npz")
+    pj = _reference_kernel_npz(f, 32, 2, "float32", "int32").pack
+    arrays = _malformed(pj, defect)
+    match = "non-decreasing" if defect == "rows_shuffled" else "padding"
+    with pytest.raises(ValueError, match=match):
+        if source == "blockell_from_arrays":
+            convert.blockell_from_arrays(
+                n=pj.n, tm=pj.tm, nt=pj.nt, w_pad=pj.w_pad, s=pj.s,
+                num_symmetric=pj.num_symmetric, pad_ratio=pj.pad_ratio,
+                **arrays)
+        else:
+            with np.load(f) as z:
+                saved = dict(z)
+            saved.update({"pack_" + k: v for k, v in arrays.items()})
+            np.savez(f, **saved)
+            tsched.SpmvSchedule.load_npz(f)
+
+
+def test_refresh_and_device_move_do_not_recheck_slot_order(monkeypatch):
+    """The slot order is checked once, where the pack is built: a value
+    refresh changes no index stream, and neither does ``.to()``."""
+    import dataclasses
+    calls = []
+    check = tbe.check_slot_order
+    monkeypatch.setattr(tbe, "check_slot_order",
+                        lambda *a: calls.append(1) or check(*a))
+    Mj = MATRICES["fem_band"]()
+    pack = tbe.pack(to_torch_csrc(Mj), tm=32, k_step=256)
+    assert len(calls) == 1
+    Mt2 = to_torch_csrc(dataclasses.replace(Mj, al=np.asarray(Mj.al) * 2,
+                                            au=np.asarray(Mj.au) * 2))
+    refreshed = tbe.refresh_values(pack, Mt2)
+    moved = refreshed.to("meta")
+    assert moved.row_in_win.device.type == "meta"
+    assert torch.equal(refreshed.row_in_win, pack.row_in_win)
+    assert len(calls) == 1
