@@ -372,6 +372,162 @@ def onehot_case_holds(case, geometry) -> bool:
                 and hi > geometry["k_step"])
     return geometry["w_pad"] == 4096
 
+# K12's adversary packs (``nnzsplit_adversary_arrays``): case -> (value
+# dtype, index dtype, ks)
+NNZ_ADVERSARIES = {
+    "hub_fills_chunks": (torch.float32, torch.int32, 8),
+    "run_crosses_pass": (torch.float32, torch.int32, 8),
+    "r_pad_4096": (torch.float32, torch.int32, 8),
+    "bf16_i16": (torch.bfloat16, torch.int16, 8),
+}
+
+
+def nnzsplit_adversary_arrays(case, seed):
+    """A small matrix (dyadic values) whose nnz-split pack (``NNZ_ADVERSARIES``
+    gives its dtypes and ks) stresses K12's row runs:
+
+      hub_fills_chunks  a star graph's centre: one row fills whole chunks,
+                        so one thread per column adds 1,024 entries;
+      run_crosses_pass  20 entries per row, 40 per row in the combined
+                        stream: a row's run crosses entry 512 of a chunk,
+                        where a pass of the kernel ends;
+      r_pad_4096        two dense rows 3,999 apart in one chunk;
+      bf16_i16          a power-law graph in bfloat16 values and int16
+                        indices.
+
+    Returns (ia, ja, ad, al, au)."""
+    if case == "hub_fills_chunks":
+        return star_arrays(5000, seed)
+    if case == "run_crosses_pass":
+        return random_arrays(3000, seed, dyadic=True)
+    if case == "r_pad_4096":
+        return gap_arrays(seed)
+    return powerlaw_arrays(20000, seed, dyadic=True)
+
+
+def nnzsplit_chunk_geometry(pack):
+    """What the K12 adversary cases aim at, read off an ``NnzSplitPack``:
+    the chunks holding one row only, the runs cut by the end of a kernel
+    pass (``csrc_spmv_nnzsplit._STAGE`` entries), r_pad and the dtypes."""
+    from repro_torch.kernels.csrc_spmv_nnzsplit import _STAGE
+    lrow = pack.lrow.long()
+    cuts = torch.arange(_STAGE, pack.s, _STAGE)
+    return {"r_pad": pack.r_pad, "s": pack.s,
+            "one_row_chunks": int((lrow == lrow[:, :1]).all(1).sum()),
+            "runs_across_passes": int((lrow[:, cuts - 1]
+                                       == lrow[:, cuts]).sum()),
+            "dtypes": [str(pack.vals.dtype), str(pack.lrow.dtype)]}
+
+
+def nnzsplit_case_holds(case, geometry) -> bool:
+    """Whether a pack's ``nnzsplit_chunk_geometry`` has the feature its
+    ``nnzsplit_adversary_arrays`` case aims at."""
+    if case == "hub_fills_chunks":
+        return geometry["one_row_chunks"] > 0
+    if case == "run_crosses_pass":
+        return geometry["runs_across_passes"] > 0
+    if case == "r_pad_4096":
+        return geometry["r_pad"] == 4096
+    return geometry["dtypes"] == ["torch.bfloat16", "torch.int16"]
+
+
+ASM_ADVERSARIES = ("race_fan", "tile_over_one_pass", "empty_tile",
+                   "empty_color", "i16_targets_32767")
+
+
+def assembly_adversary(case, seed):
+    """A small assembly (schedule built by the port, dyadic stiffness) whose
+    colored packs stress K14's runs and passes (``ONEHOT_STAGE`` entries):
+
+      race_fan            12,596 triangles around node 0 in two level-group
+                          colors (RACE's serial chunks): color 0's run of
+                          target 0 (4,096 entries) crosses a pass end and
+                          closes exactly at the next, color 1's (8,500)
+                          crosses four pass ends;
+      tile_over_one_pass  greedy grid_tet(5), three DOFs per node: a tile's
+                          buckets over all colors fill several passes;
+      empty_tile          two grid_tri(8) patches 2,000 nodes apart: the
+                          tiles between them get no entry of any color;
+      empty_color         greedy grid_tri(4) with one more, empty, color;
+      i16_targets_32767   one triangle whose vector has 32,767 entries: int16
+                          targets, the sentinel at the int16 maximum.
+
+    Returns (schedule, ke)."""
+    import dataclasses as dc
+    from repro_torch.assembly import conflict
+    from repro_torch.assembly import mesh as amesh
+    from repro_torch.assembly import scatter as asc
+    from repro_torch.core.coloring import Coloring
+    d, coloring = 1, None
+    if case == "race_fan":
+        ne = 4096 + 8500
+        first = np.arange(1, ne + 1, dtype=np.int32)
+        conn = np.stack([np.zeros(ne, np.int32), first, first + 1], 1)
+        mesh = amesh.Mesh("fan", 2, np.zeros((ne + 2, 2)), conn)
+        zeros = np.zeros(ne, np.int32)
+        coloring = Coloring(
+            color_of_row=(np.arange(ne) >= 4096).astype(np.int32),
+            num_colors=2, rows_by_color=np.arange(ne, dtype=np.int32),
+            color_ptr=np.asarray([0, 4096, ne], np.int32), provider="race",
+            level_of_row=zeros, group_of_row=zeros)
+    elif case == "tile_over_one_pass":
+        mesh, d = amesh.grid_tet(5), 3
+    elif case == "empty_tile":
+        patch = amesh.grid_tri(8)
+        conn = np.concatenate([patch.conn, patch.conn + 2000])
+        mesh = amesh.Mesh("two_patches", 2,
+                          np.zeros((2000 + patch.num_nodes, 2)), conn)
+    elif case == "empty_color":
+        mesh = amesh.grid_tri(4)
+        col = conflict.color_elements(mesh.conn)
+        coloring = dc.replace(col, num_colors=col.num_colors + 1,
+                              color_ptr=np.append(col.color_ptr,
+                                                  col.color_ptr[-1]))
+    else:
+        mesh = amesh.Mesh("one_triangle", 2, np.zeros((32761, 2)),
+                          np.asarray([[0, 1, 32760]], np.int32))
+    sched = asc.build_assembly_schedule(mesh, d, coloring=coloring)
+    return sched, amesh.synthetic_stiffness(mesh, d, seed=seed)
+
+
+def assembly_pack_geometry(packs):
+    """What the K14 adversary cases aim at, read off ``ColoredPacks``: the
+    longest run (one target's entries in one color), the most entries of
+    one tile over all colors, the empty tiles that lie between tiles with
+    entries, the empty colors, the target dtype and the vector's size."""
+    tgts = packs.tgts.long().cpu()
+    run = 0
+    for c in range(packs.num_colors):
+        real = tgts[c][tgts[c] != packs.size]
+        if real.numel():
+            run = max(run, int(torch.bincount(real).max()))
+    ptr = packs.ptr.long().cpu()
+    per_tile = (ptr[:, 1:] - ptr[:, :-1]).sum(0)
+    full = torch.nonzero(per_tile).reshape(-1)
+    inner = (per_tile[int(full.min()):int(full.max()) + 1] if full.numel()
+             else per_tile[:0])
+    return {"longest_run": run, "tile_entries_max": int(per_tile.max()),
+            "empty_tiles_between": int((inner == 0).sum()),
+            "empty_colors": int((ptr[:, -1] == 0).sum()),
+            "target_dtype": str(packs.tgts.dtype), "size": packs.size}
+
+
+def assembly_case_holds(case, geometry) -> bool:
+    """Whether packs' ``assembly_pack_geometry`` has the feature their
+    ``assembly_adversary`` case aims at."""
+    from repro_torch.kernels.assembly_scatter import ONEHOT_STAGE
+    if case == "race_fan":
+        return geometry["longest_run"] > 2 * ONEHOT_STAGE
+    if case == "tile_over_one_pass":
+        return geometry["tile_entries_max"] > ONEHOT_STAGE
+    if case == "empty_tile":
+        return geometry["empty_tiles_between"] > 0
+    if case == "empty_color":
+        return geometry["empty_colors"] > 0
+    return (geometry["target_dtype"] == "torch.int16"
+            and geometry["size"] == 32767)
+
+
 def poisson_arrays(side):
     """The 5-point Laplacian on a side x side grid, the class of
     ``csrc.poisson2d``: diagonal 4, -1 to each grid neighbour (row-major
@@ -648,6 +804,7 @@ def phase_kernels(seed: int):
         torch.cuda.empty_cache()
     report += _flat_onehot_cases(seed, rng)
     report += _nnzsplit_kernel_cases(seed, rng)
+    report += _nnzsplit_adversary_cases(seed, rng)
     report += _assembly_kernel_cases(seed)
     report += _rect_onehot_cases(seed, rng)
     emit("kernels", tolerance=f"exact on dyadic data, else {TOL} of the "
@@ -766,11 +923,6 @@ def _nnzsplit_kernel_cases(seed, rng):
          f32, i32, 8, (1, 8), False),
         ("nz_f32_i32_ns_general", lambda sd: random_arrays(3001, sd),
          f32, i32, 1, (1, 3), False),
-        # a star graph's centre: one row over several chunks
-        ("nz_star_hub", lambda sd: star_arrays(5000, sd),
-         f32, i32, 8, (1, 11), True),
-        # two dense rows 3,999 apart in one chunk: r_pad = 4096
-        ("nz_r_pad_4096", gap_arrays, f32, i32, 8, (1, 3, 8), True),
         # the power-law main path's geometry at 1/32 size
         ("nz_powerlaw_main_geometry",
          lambda sd: powerlaw_arrays(65536, sd, dyadic=True),
@@ -784,10 +936,6 @@ def _nnzsplit_kernel_cases(seed, rng):
         pack = nz.pack_nnzsplit(M, ks=ks, dtype=vdt,
                                 index_dtype=idt).to("cuda")
         hub_chunks = int(torch.bincount(pack.chunk_row0.long()).max())
-        if "r_pad_4096" in name:
-            check(pack.r_pad == 4096, f"{name}: r_pad {pack.r_pad}")
-        if "hub" in name:
-            check(hub_chunks > 1, f"{name}: the hub row fills one chunk")
         runners = _runners(pack, ks)
         abs_runners = _runners(abs_pack(pack), ks)
         errs = {}
@@ -808,6 +956,43 @@ def _nnzsplit_kernel_cases(seed, rng):
                        "pad_ratio": round(pack.pad_ratio, 4),
                        "exact": dyadic, "max_err": max(errs.values())})
         del pack, runners, abs_runners
+        torch.cuda.empty_cache()
+    return report
+
+
+def _nnzsplit_adversary_cases(seed, rng):
+    """K9-K12 on the packs of ``nnzsplit_adversary_arrays`` (each checked
+    for its feature first), exact on dyadic data: K9/K11 on x (n,), K10/K12
+    on X (n, B) at B = 1, 3, 11 and 64 — B = 1 through the SpMM entry, and
+    at B = 64 K12 runs several column tiles."""
+    from repro_torch.core import csrc
+    from repro_torch.kernels import csrc_spmv_nnzsplit as nz
+    report = []
+    for case, (vdt, idt, ks) in NNZ_ADVERSARIES.items():
+        arrays = nnzsplit_adversary_arrays(case, seed + 70 + len(report))
+        n = arrays[0].shape[0] - 1
+        M = csrc.from_assembly(n, *arrays)
+        pack = nz.pack_nnzsplit(M, ks=ks, dtype=vdt,
+                                index_dtype=idt).to("cuda")
+        geometry = nnzsplit_chunk_geometry(pack)
+        check(nnzsplit_case_holds(case, geometry),
+              f"nz_{case}: the pack misses its feature ({geometry})")
+        geometry["k12_column_tiles"] = {
+            b: nz._onehot_tile(pack.r_pad, b) for b in (3, 11, 64)}
+        errs = {}
+        for width in (None, 1, 3, 11, 64):
+            shape = (n,) if width is None else (n, width)
+            x = torch.from_numpy(dyadic_vector(rng, shape)).cuda()
+            for kname, (kernel, plain) in _runners(pack, ks).items():
+                if ("spmv" in kname) != (width is None):
+                    continue
+                tag = f"{kname}/B{width or 1}"
+                errs[tag] = _compare(f"nz_{case}/{tag}", kernel, plain, x,
+                                     exact=True)
+        report.append({"case": f"nz_{case}", "n": n, "ks": ks,
+                       "num_chunks": pack.num_chunks, **geometry,
+                       "exact": True, "max_err": max(errs.values())})
+        del pack
         torch.cuda.empty_cache()
     return report
 
@@ -1262,40 +1447,46 @@ def _assembly_kernel_cases(seed):
     """K13 / K14 against their plain versions and the serial oracle,
     exact on dyadic stiffness: tri / quad / tet meshes with 1-3 DOFs per
     node, int16 and int32 streams (both gates, the int16-overflow
-    connectivity), an empty color, a single element, a RACE coloring whose
-    colors repeat targets (K13 adds with atomics) and a mid-size tet."""
-    import dataclasses as dc
-    from repro_torch.assembly import conflict
+    connectivity), a single element, a RACE coloring whose colors repeat
+    targets (K13 adds with atomics), a mid-size tet, and the packs of
+    ``assembly_adversary`` aimed at K14's runs and passes (an empty color
+    among them); each of those is checked for its feature first."""
     from repro_torch.assembly import mesh as amesh
     from repro_torch.assembly import scatter as asc
     from repro_torch.kernels import assembly_scatter as ak
     small_ke = np.asarray([[[2.0, -0.5, -0.25], [-0.5, 1.0, -0.125],
                             [-0.25, -0.125, 3.0]]], np.float32)
 
-    tri4 = amesh.grid_tri(4)
-    col = conflict.color_elements(tri4.conn)
-    # one more color than the coloring uses: its pack row is all padding
-    empty = dc.replace(col, num_colors=col.num_colors + 1,
-                       color_ptr=np.append(col.color_ptr, col.color_ptr[-1]))
     cases = [
-        # name, mesh or conn, dofs per node, provider, coloring override
-        ("asm_tri_d1_i16", amesh.grid_tri(8), 1, "greedy", None),
-        ("asm_quad_d2", amesh.grid_quad(6), 2, "greedy", None),
-        ("asm_tet_d3", amesh.grid_tet(3), 3, "greedy", None),
-        ("asm_tri_i32_slots_i16_targets", amesh.grid_tri(44), 1, "greedy",
-         None),
-        ("asm_i16_overflow", np.asarray([[0, 1, 32767]]), 1, "greedy", None),
-        ("asm_single_element", np.asarray([[0, 1, 2]]), 1, "greedy", None),
-        ("asm_empty_color", tri4, 1, "greedy", empty),
-        ("asm_tet16_d3_race", amesh.grid_tet(16), 3, "race", None),
-        ("asm_tet16_d3", amesh.grid_tet(16), 3, "greedy", None),
+        # name, mesh or conn, dofs per node, provider
+        ("asm_tri_d1_i16", amesh.grid_tri(8), 1, "greedy"),
+        ("asm_quad_d2", amesh.grid_quad(6), 2, "greedy"),
+        ("asm_tet_d3", amesh.grid_tet(3), 3, "greedy"),
+        ("asm_tri_i32_slots_i16_targets", amesh.grid_tri(44), 1, "greedy"),
+        ("asm_i16_overflow", np.asarray([[0, 1, 32767]]), 1, "greedy"),
+        ("asm_single_element", np.asarray([[0, 1, 2]]), 1, "greedy"),
+        ("asm_tet16_d3_race", amesh.grid_tet(16), 3, "race"),
+        ("asm_tet16_d3", amesh.grid_tet(16), 3, "greedy"),
     ]
+
+    def schedules():
+        for name, mesh, d, provider in cases:
+            sched = asc.build_assembly_schedule(mesh, d,
+                                                coloring_provider=provider)
+            ke = (amesh.synthetic_stiffness(mesh, d, seed=seed + len(report))
+                  if hasattr(mesh, "conn") else small_ke)
+            yield name, sched, ke, {"dofs_per_node": d, "provider": provider}
+        for case in ASM_ADVERSARIES:
+            sched, ke = assembly_adversary(case, seed + len(report))
+            geometry = assembly_pack_geometry(sched.colored)
+            check(assembly_case_holds(case, geometry),
+                  f"asm_{case}: the packs miss their feature ({geometry})")
+            yield (f"asm_{case}", sched, ke,
+                   {"dofs_per_node": sched.ndof_per_node,
+                    "provider": sched.coloring.provider, **geometry})
+
     report = []
-    for name, mesh, d, provider, coloring in cases:
-        sched = asc.build_assembly_schedule(mesh, d, coloring=coloring,
-                                            coloring_provider=provider)
-        ke = (amesh.synthetic_stiffness(mesh, d, seed=seed + len(report))
-              if hasattr(mesh, "conn") else small_ke)
+    for name, sched, ke, extra in schedules():
         want = assembly_oracle(sched, ke)
         check(np.array_equal(want, asc.scatter_serial(sched, ke)),
               f"{name}: the bincount oracle differs from np.add.at")
@@ -1314,8 +1505,8 @@ def _assembly_kernel_cases(seed):
                                    lambda x: plain(packs, x), k, exact=True)
             check(np.array_equal(kernel(packs, k).cpu().numpy(), want),
                   f"{name}/{kname}: differs from the serial oracle")
-        report.append({"case": name, "ne": sched.ne, "dofs_per_node": d,
-                       "provider": provider, "colors": packs.num_colors,
+        report.append({"case": name, "ne": sched.ne, **extra,
+                       "colors": packs.num_colors,
                        "lmax": packs.lmax, "size": sched.size,
                        "index_dtypes": sched.index_dtypes,
                        "atomic": packs.repeats, "exact": True,

@@ -17,6 +17,9 @@
 // both widened in registers; every product and sum is float32.
 //
 // One block owns one (chunk, column tile) pair: grid (C, ceil(B / BT)).
+//
+// Bodies: the warp-segmented stream sums (K9, K10), the row-run sums of the
+// one-hot SpMM (K12) and the fixed-order scan of the one-hot SpMV (K11).
 #pragma once
 
 #include "blockell_common.cuh"
@@ -132,7 +135,129 @@ inline int launch_chunk_stream(const void* vals, const void* lrow,
 }
 
 // ---------------------------------------------------------------------------
-// One-hot: one thread per (row, column), fixed-order scan (K11, K12)
+// One-hot SpMM: one thread per (row, column) sums its row's run (K12)
+// ---------------------------------------------------------------------------
+//
+// The TPU body contracts the (S, r_pad) one-hot of lrow with the chunk's
+// (S, B) products.  lrow never decreases inside a chunk (checked wherever a
+// pack is built, loaded or converted: check_chunk_streams), so row r's
+// entries are one run, and padding (value 0, src 0, the stream's last row)
+// sits inside that row's run, adding 0·x[0] as in the reference.  Per pass
+// of kStage entries:
+//
+//   products      one per (entry, column), rounded (__fmul_rn: never fused
+//                 into a sum), columns fastest, so consecutive threads read
+//                 consecutive columns of one X row;
+//   row pointers  the entry whose row differs from its predecessor's writes
+//                 start[r] = its index for every row r from the
+//                 predecessor's row + 1 to its own; the last entry closes
+//                 the rows after its own.  Row r's run is [start[r],
+//                 start[r + 1]), empty for a row without entries.  No
+//                 zeroing, one writer per row;
+//   sums          thread (r, j) adds its run's products of column j, in slot
+//                 order, into its running sum in shared memory, which
+//                 starts at 0 — a run cut by the end of a pass continues in
+//                 the next one unchanged.
+//
+// That is the scan body's order of additions (below), so the two agree bit
+// for bit.  Work per chunk: O(S·B + r_pad·B) against the scan's
+// S·r_pad·B compares.  An lrow outside [0, r_pad), which a checked pack
+// never holds, joins no run.
+
+constexpr int kRunThreads = 256;
+
+__device__ __forceinline__ int run_key(int key, int r_pad) {
+  return key < 0 ? -1 : min(key, r_pad);
+}
+
+template <typename V, typename I>
+__global__ void __launch_bounds__(kRunThreads)
+chunk_runs_kernel(const V* __restrict__ vals, const I* __restrict__ lrow,
+                  const I* __restrict__ src, const float* __restrict__ x,
+                  float* __restrict__ out, int s, int r_pad, int n, int nrhs,
+                  int bt) {
+  extern __shared__ float smem[];
+  const int c = blockIdx.x;
+  const int j0 = blockIdx.y * bt;
+  const int cols = min(bt, nrhs - j0);
+  const int tid = threadIdx.x;
+  const int items = r_pad * cols;
+  float* acc = smem;                                        // (r_pad, cols)
+  float* prod = smem + static_cast<size_t>(r_pad) * bt;     // (kStage, cols)
+  int* start = reinterpret_cast<int*>(prod + static_cast<size_t>(kStage) *
+                                                 bt);       // (r_pad + 1,)
+  for (int q = tid; q < items; q += kRunThreads) acc[q] = 0.0f;
+
+  const size_t base = static_cast<size_t>(c) * s;
+  for (int e0 = 0; e0 < s; e0 += kStage) {
+    const int len = min(kStage, s - e0);
+    __syncthreads();   // the previous pass has been consumed
+    for (int i = tid; i < len * cols; i += kRunThreads) {
+      const int e = i / cols;
+      const int j = i - e * cols;
+      const size_t p = base + e0 + e;
+      prod[i] = __fmul_rn(load_value(vals, p),
+                          gather_x(x, load_index(src, p), n, nrhs, j0 + j));
+    }
+    for (int i = tid; i < len; i += kRunThreads) {
+      const size_t p = base + e0 + i;
+      const int key = run_key(load_index(lrow, p), r_pad);
+      const int prev = i == 0 ? -1 : run_key(load_index(lrow, p - 1), r_pad);
+      for (int r = prev + 1; r <= key; ++r) start[r] = i;
+      if (i == len - 1) {
+        for (int r = max(key, prev) + 1; r <= r_pad; ++r) start[r] = len;
+      }
+    }
+    __syncthreads();
+    for (int q = tid; q < items; q += kRunThreads) {
+      const int r = q / cols;
+      const int j = q - r * cols;
+      float a = acc[q];
+      const int k1 = min(start[r + 1], len);   // in range for any lrow
+      for (int k = max(start[r], 0); k < k1; ++k) a += prod[k * cols + j];
+      acc[q] = a;
+    }
+  }
+
+  // each thread stores the items it summed
+  float* dst = out + static_cast<size_t>(c) * r_pad * nrhs;
+  for (int q = tid; q < items; q += kRunThreads) {
+    const int r = q / cols;
+    const int j = q - r * cols;
+    dst[static_cast<size_t>(r) * nrhs + j0 + j] = acc[q];
+  }
+}
+
+inline size_t chunk_runs_smem_bytes(int r_pad, int bt) {
+  return sizeof(float) * ((static_cast<size_t>(r_pad) + kStage) * bt +
+                          r_pad + 1);
+}
+
+inline int launch_chunk_runs(const void* vals, const void* lrow,
+                             const void* src, const void* x, void* out,
+                             int num_chunks, int s, int r_pad, int n,
+                             int nrhs, int bt, int val_bf16, int idx_i16,
+                             void* stream) {
+  if (bt < 1 || nrhs < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = chunk_runs_smem_bytes(r_pad, bt);
+  const dim3 grid(num_chunks, (nrhs + bt - 1) / bt);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define LAUNCH(V, I)                                                         \
+  do {                                                                       \
+    cudaError_t e = allow_dynamic_smem(chunk_runs_kernel<V, I>, smem);       \
+    if (e != cudaSuccess) return static_cast<int>(e);                        \
+    chunk_runs_kernel<V, I><<<grid, kRunThreads, smem, st>>>(                \
+        static_cast<const V*>(vals), static_cast<const I*>(lrow),            \
+        static_cast<const I*>(src), static_cast<const float*>(x),            \
+        static_cast<float*>(out), s, r_pad, n, nrhs, bt);                    \
+  } while (0)
+  BLOCKELL_DISPATCH(val_bf16, idx_i16, LAUNCH);
+#undef LAUNCH
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// One-hot SpMV: one thread per row, fixed-order scan (K11 only)
 // ---------------------------------------------------------------------------
 
 template <typename V, typename I>

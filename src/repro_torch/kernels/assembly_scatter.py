@@ -20,9 +20,11 @@ widened in registers.
   'onehot'  K14, csrc/assembly_colored_onehot.cu — replaces
             ::_colored_kernel_onehot, ported from its math, not its grid:
             one block per 512-wide output tile owns it across all colors,
-            reading only that tile's bucket of each color (``order`` /
-            ``ptr``, :func:`pack_colored_streams`); the thread of position p
-            adds its matches in color, then slot order.  No mask, no
+            reading only that tile's bucket of each color (``ptr`` cuts
+            ``bucket_slots`` / ``bucket_tgts``, the packs sorted by target:
+            :func:`pack_colored_streams`), so each target's entries of a
+            color are one contiguous run; per color the entry that opens a
+            run sums it in slot order and adds the sum.  No mask, no
             atomics, bit-identical reruns.
 
 Their plain versions follow the TPU bodies' math — K13: per color a gather
@@ -43,9 +45,11 @@ import torch
 from . import _build
 from ._build import _I, _P
 
-# output-tile width of the one-hot body: K14's block owns one tile, one
-# thread per position (csrc/assembly_colored_onehot.cu kTile)
+# output-tile width of the one-hot body: K14's block owns one tile
+# (csrc/assembly_colored_onehot.cu kTile)
 ONEHOT_TILE = 512
+# bucket entries K14 stages per pass (csrc/assembly_colored_onehot.cu kStage)
+ONEHOT_STAGE = 2048
 COLORED_VARIANTS = ("stream", "onehot")
 # one-hot masks of the plain version are built for at most this many
 # (entry, position) pairs at a time
@@ -57,10 +61,10 @@ K13 = _build.register(_build.Kernel(
     replaces="src/repro/kernels/assembly_scatter.py:102"))
 K14 = _build.register(_build.Kernel(
     "assembly_colored_onehot",
-    [_P] * 6 + [_I] * 7 + [_P],
+    [_P] * 5 + [_I] * 7 + [_P],
     replaces="src/repro/kernels/assembly_scatter.py:121"))
 
-_STREAMS = ("slots", "tgts", "order", "ptr")
+_STREAMS = ("slots", "tgts", "order", "ptr", "bucket_slots", "bucket_tgts")
 _INDEX_DTYPES = (np.int16, np.int32)
 
 
@@ -72,12 +76,15 @@ def _round_up(v: int, m: int) -> int:
 class ColoredPacks:
     """A schedule's colored streams with the bucketing K14 reads.
 
-    ``order[c]`` lists color c's pack positions stable-sorted by output
-    tile (``tgt // ONEHOT_TILE``), sentinels last; tile t's entries are
-    ``order[c, ptr[c, t]:ptr[c, t + 1]]``.  ``repeats`` says whether some
-    color writes one target twice (a RACE level group can): K13 then adds
-    with atomics.  Derived from the packs by :func:`pack_colored_streams`,
-    never stored."""
+    ``order[c]`` lists color c's pack positions stable-sorted by target,
+    sentinels (target ``size``) last; tile t's entries are
+    ``order[c, ptr[c, t]:ptr[c, t + 1]]``, their targets non-decreasing,
+    ties in slot order.  K14 reads them as ``bucket_slots`` /
+    ``bucket_tgts``, the two streams permuted by ``order``, so a bucket is
+    a contiguous range.  ``repeats`` says whether some color writes one
+    target twice (a RACE level group can): K13 then adds with atomics.
+    Derived from the packs by :func:`pack_colored_streams`, never
+    stored."""
 
     num_contribs: int           # G = ne·edof², the slot sentinel
     size: int                   # unified vector length, the target sentinel
@@ -85,6 +92,8 @@ class ColoredPacks:
     tgts: torch.Tensor          # (C, Lmax) int16|int32
     order: torch.Tensor         # (C, Lmax) int32
     ptr: torch.Tensor           # (C, NT + 1) int32
+    bucket_slots: torch.Tensor  # (C, Lmax) slots[c, order[c]]
+    bucket_tgts: torch.Tensor   # (C, Lmax) tgts[c, order[c]]
     repeats: bool
 
     @property
@@ -119,20 +128,19 @@ class ColoredPacks:
     def streamed_bytes(self) -> int:
         """Bytes the scatter must move, whichever kernel runs it: each real
         entry's slot, target and contribution read once, the unified
-        vector written once.  Padding and K14's buckets are the layout's
+        vector written once.  Padding and K14's ``ptr`` are the layout's
         cost (:meth:`layout_bytes`)."""
         per_entry = self.slots.element_size() + self.tgts.element_size() + 4
         return self.num_entries * per_entry + 4 * self.size
 
     def layout_bytes(self, variant: str = "stream") -> int:
-        """Bytes a kernel reads beyond :meth:`streamed_bytes`: the padded
-        entries of both index streams, and K14's ``order`` / ``ptr``."""
-        pad = (self.slots.numel() - self.num_entries) * (
-            self.slots.element_size() + self.tgts.element_size())
+        """Bytes a kernel reads beyond :meth:`streamed_bytes`: K13 the
+        padded entries of both index streams, K14 its ``ptr`` (its bucket
+        streams hold the real entries only up to ``ptr[c, -1]``)."""
         if variant == "onehot":
-            pad += (self.order.numel() * self.order.element_size()
-                    + self.ptr.numel() * self.ptr.element_size())
-        return pad
+            return self.ptr.numel() * self.ptr.element_size()
+        return (self.slots.numel() - self.num_entries) * (
+            self.slots.element_size() + self.tgts.element_size())
 
 
 def pack_colored_streams(color_slots, color_targets, num_contribs: int,
@@ -161,10 +169,12 @@ def pack_colored_streams(color_slots, color_targets, num_contribs: int,
         raise ValueError("a padded entry must carry both sentinels")
     num_colors = slots.shape[0]
     nt = _round_up(size + 1, ONEHOT_TILE) // ONEHOT_TILE
+    # the sentinel target ``size`` sorts after every real one; torch's
+    # multithreaded stable sort gives numpy's stable permutation, sooner
+    slots_t = torch.from_numpy(np.ascontiguousarray(slots))
+    tgts_t = torch.from_numpy(np.ascontiguousarray(tgts))
+    perm = torch.sort(tgts_t.to(torch.int32), dim=1, stable=True).indices
     key = np.where(sentinel, nt, tgts.astype(np.int32) // ONEHOT_TILE)
-    # 16-bit keys take numpy's radix sort (a stable O(n) pass per color)
-    key = key.astype(np.int16 if nt <= np.iinfo(np.int16).max else np.int32)
-    order = np.argsort(key, axis=1, kind="stable").astype(np.int32)
     ptr = np.zeros((num_colors, nt + 1), np.int32)
     repeats = False
     for c in range(num_colors):
@@ -173,10 +183,11 @@ def pack_colored_streams(color_slots, color_targets, num_contribs: int,
         repeats = repeats or (real.size > 0 and int(np.bincount(
             real.astype(np.int64), minlength=1).max()) > 1)
     return ColoredPacks(num_contribs=int(num_contribs), size=int(size),
-                        slots=torch.from_numpy(np.ascontiguousarray(slots)),
-                        tgts=torch.from_numpy(np.ascontiguousarray(tgts)),
-                        order=torch.from_numpy(order),
-                        ptr=torch.from_numpy(ptr), repeats=bool(repeats))
+                        slots=slots_t, tgts=tgts_t,
+                        order=perm.to(torch.int32), ptr=torch.from_numpy(ptr),
+                        bucket_slots=torch.gather(slots_t, 1, perm),
+                        bucket_tgts=torch.gather(tgts_t, 1, perm),
+                        repeats=bool(repeats))
 
 
 def _contribs(packs: ColoredPacks, kflat: torch.Tensor) -> torch.Tensor:
@@ -252,9 +263,9 @@ def colored_scatter_onehot_plain(packs: ColoredPacks,
 def _flags(packs: ColoredPacks, device) -> tuple:
     """``(slots are int16, targets are int16)`` after checking the
     streams' dtypes, shapes, layout and device."""
-    shapes = {"slots": (packs.num_colors, packs.lmax),
-              "tgts": (packs.num_colors, packs.lmax),
-              "order": (packs.num_colors, packs.lmax),
+    rows = (packs.num_colors, packs.lmax)
+    shapes = {"slots": rows, "tgts": rows, "order": rows,
+              "bucket_slots": rows, "bucket_tgts": rows,
               "ptr": (packs.num_colors, packs.num_tiles + 1)}
     for name, shape in shapes.items():
         a = getattr(packs, name)
@@ -265,6 +276,10 @@ def _flags(packs: ColoredPacks, device) -> tuple:
     for name in ("slots", "tgts"):
         if getattr(packs, name).dtype not in (torch.int16, torch.int32):
             raise TypeError(f"packs.{name} must be int16 or int32")
+        if getattr(packs, "bucket_" + name).dtype != getattr(packs,
+                                                             name).dtype:
+            raise TypeError(f"packs.bucket_{name} must be "
+                            f"{getattr(packs, name).dtype}")
     for name in ("order", "ptr"):
         if getattr(packs, name).dtype != torch.int32:
             raise TypeError(f"packs.{name} must be int32")
@@ -273,14 +288,14 @@ def _flags(packs: ColoredPacks, device) -> tuple:
 
 
 def _launch(kernel, packs: ColoredPacks, kflat: torch.Tensor,
-            extra_ptrs, extra_ints) -> torch.Tensor:
+            streams, extra_ints) -> torch.Tensor:
     if not kflat.is_cuda:
         raise ValueError("the CUDA kernels take CUDA tensors; a CPU tensor "
                          "goes to the plain version")
     k = _contribs(packs, kflat)
     flags = _flags(packs, k.device)
     out = torch.empty(packs.size, dtype=torch.float32, device=k.device)
-    args = [packs.slots.data_ptr(), packs.tgts.data_ptr(), *extra_ptrs,
+    args = [*(a.data_ptr() for a in streams),
             k.data_ptr(), out.data_ptr(), packs.num_colors, packs.lmax,
             *extra_ints, packs.num_contribs, packs.size,
             *(int(f) for f in flags)]
@@ -293,7 +308,8 @@ def colored_scatter_stream_cuda(packs: ColoredPacks,
                                 kflat: torch.Tensor) -> torch.Tensor:
     """Launch K13 (one cooperative launch); returns the (size,) vector.
     Atomic adds only when some color repeats a target."""
-    return _launch(K13, packs, kflat, [], [int(packs.repeats)])
+    return _launch(K13, packs, kflat, [packs.slots, packs.tgts],
+                   [int(packs.repeats)])
 
 
 def colored_scatter_onehot_cuda(packs: ColoredPacks,
@@ -301,7 +317,7 @@ def colored_scatter_onehot_cuda(packs: ColoredPacks,
     """Launch K14 (one block per output tile); returns the (size,)
     vector."""
     return _launch(K14, packs, kflat,
-                   [packs.order.data_ptr(), packs.ptr.data_ptr()],
+                   [packs.bucket_slots, packs.bucket_tgts, packs.ptr],
                    [packs.num_tiles])
 
 

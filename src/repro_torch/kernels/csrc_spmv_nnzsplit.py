@@ -21,8 +21,8 @@ Geometry (``r_pad``, padding entries, dtypes, argsort order) is that of the
 JAX package's ``pack_nnzsplit``, array for array.  Streams are held as
 (C, S); the npz keeps the JAX package's ``(C, ks, 128)`` layout.  Because
 the stream is sorted, ``lrow`` never decreases inside a chunk; the stream
-kernels rely on that, so every pack is checked for it when it is built,
-loaded or converted (:func:`check_chunk_streams`).
+kernels and K12 rely on that, so every pack is checked for it when it is
+built, loaded or converted (:func:`check_chunk_streams`).
 
 Kernels, selected by ``variant``, all gather ``x[src]`` themselves (x stays
 in L2; the JAX package's gathered ``xg`` stream is never materialized):
@@ -34,9 +34,11 @@ in L2; the JAX package's gathered ``xg`` stream is never materialized):
             warp-segmented sum by ``lrow`` into a shared-memory row.
   'onehot'  K11, csrc/nnzsplit_spmv_onehot.cu, and K12,
             csrc/nnzsplit_spmm_onehot.cu — replace ::_kernel / ::_kernel_mm.
-            Bound by operations (S·r_pad compares per chunk); one thread per
-            (row[, column]) scans the chunk in slot order: a fixed summation
-            order, bit-identical reruns.
+            K11: one thread per row scans the chunk (S·r_pad compares per
+            chunk, bound by operations).  K12: ``lrow`` is sorted, so each
+            row's entries are one run; the thread of each (row, column) sums
+            its run (bound by bytes).  Both add in slot order: a fixed
+            summation order, bit-identical reruns.
 
 Their plain PyTorch versions — the fused gather + ``index_add_`` form
 (``csrc_spmv_stream.nnzsplit_partials_fused``) and the chunk-by-chunk
@@ -55,7 +57,7 @@ from repro_torch.core.csrc import CSRC, _np, row_of_slot
 from repro_torch.core.plan import LANES, VARIANTS
 from . import _build
 from ._build import _I, _P
-from .csrc_spmm import column_tile
+from .csrc_spmm import _SMEM_BUDGET, column_tile
 
 K9 = _build.register(_build.Kernel(
     "nnzsplit_spmv_stream",
@@ -201,8 +203,8 @@ def check_chunk_streams(lrow, src, chunk_row0, fixup_idx, *, n: int,
                         r_pad: int) -> None:
     """Raise ValueError unless the chunk streams are what the kernels
     assume: ``lrow`` in [0, r_pad) and non-decreasing inside each chunk
-    (the dest-sorted order the warp-segmented sums of K9/K10 rely on),
-    ``src`` in [0, n), and ``fixup_idx`` equal to
+    (the dest-sorted order the warp-segmented sums of K9/K10 and the row
+    runs of K12 rely on), ``src`` in [0, n), and ``fixup_idx`` equal to
     ``chunk_row0[c] + arange(r_pad)`` with ``chunk_row0`` in [0, n)."""
     lr = _np(lrow)
     if lr.ndim != 2:
@@ -374,8 +376,11 @@ def chunk_stream_flags(pack: NnzSplitPack, device, nrhs: int) -> tuple:
 
 def _onehot_tile(r_pad: int, nrhs: int) -> int:
     """Columns per K12 block: the (r_pad, BT) output tile and the
-    (stage, BT) staged products share the 64 KB shared-memory budget."""
-    return column_tile(r_pad + _STAGE, nrhs, 1)
+    (stage, BT) staged products share the 64 KB shared-memory budget with
+    the pass's r_pad + 1 row pointers
+    (csrc/chunk_kernels.cuh ``chunk_runs_smem_bytes``)."""
+    free = _SMEM_BUDGET - 4 * (r_pad + 1)
+    return max(1, min(nrhs, free // (4 * (r_pad + _STAGE))))
 
 
 def _launch(kernel, pack: NnzSplitPack, x: torch.Tensor, ndim: int,

@@ -1,7 +1,8 @@
 """The repo root's ``chip_smoke.py`` as a module, for the tests that share
-its one-hot adversary matrices (``onehot_adversary_arrays``) and their pack
-checks (``onehot_step_geometry``, ``onehot_case_holds``).  Loading it runs
-no phase: the script's work starts in ``main()``."""
+its one-hot adversary cases and their pack checks (K3/K4/K7/K8:
+``onehot_adversary_arrays``; K12: ``nnzsplit_adversary_arrays``; K14:
+``assembly_adversary``).  Loading it runs no phase: the script's work
+starts in ``main()``."""
 import functools
 import importlib.util
 import pathlib

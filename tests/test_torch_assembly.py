@@ -44,6 +44,7 @@ from repro_torch.kernels import ops as tops
 from repro_torch.roofline import cost_model as tcost
 from repro_torch.serve import SpmvServingEngine
 
+from _smoke import chip_smoke
 from test_torch_parity_helpers import to_torch_csrc
 
 CPU = "cpu"
@@ -332,21 +333,75 @@ def test_fused_and_sorted_torch_ops_equal_reference():
 
 
 def test_tile_buckets_are_a_stable_sort_by_output_tile():
+    """K14's buckets refine the tile order: ``order`` is each color's
+    stable argsort by target (sentinels, target ``size``, last) and the
+    bucket streams are the packs permuted by it, so ``ptr`` still cuts
+    them by output tile, and each bucket's targets lie in its tile,
+    non-decreasing — one run per target."""
     _, _, _, ts = _pair("tet", 3)
     p = ts.colored
     tile = tkern.ONEHOT_TILE
     slots, tgts = ts.color_slots, ts.color_targets
     for c in range(p.num_colors):
         real = tgts[c] != ts.size
+        order = p.order[c].numpy()
+        np.testing.assert_array_equal(
+            order, np.argsort(tgts[c].astype(np.int64), kind="stable"))
+        np.testing.assert_array_equal(p.bucket_slots[c].numpy(),
+                                      slots[c][order])
+        np.testing.assert_array_equal(p.bucket_tgts[c].numpy(),
+                                      tgts[c][order])
         key = np.where(real, tgts[c].astype(np.int64) // tile, p.num_tiles)
-        np.testing.assert_array_equal(p.order[c].numpy(),
-                                      np.argsort(key, kind="stable"))
         counts = np.bincount(key, minlength=p.num_tiles + 1)[:p.num_tiles]
         np.testing.assert_array_equal(p.ptr[c].numpy(),
                                       np.r_[0, np.cumsum(counts)])
         assert int(p.ptr[c, -1]) == int(real.sum())
         assert (slots[c][~real] == ts.num_contribs).all()
+        for t in range(p.num_tiles):
+            lo, hi = int(p.ptr[c, t]), int(p.ptr[c, t + 1])
+            bucket = tgts[c][order[lo:hi]].astype(np.int64)
+            assert ((bucket // tile) == t).all()
+            assert (np.diff(bucket) >= 0).all()
     assert p.num_tiles == -(-(ts.size + 1) // tile)
+
+
+@pytest.mark.parametrize("mesh,d,provider", [
+    ("tet3", 3, "greedy"), ("tet16", 3, "race")])
+def test_onehot_plain_equals_oracle_under_target_order(mesh, d, provider):
+    """K14's plain version over the target-sorted buckets equals the serial
+    oracle bit for bit on a greedy coloring (one entry per target and
+    color) and on a RACE one (runs of a repeated target)."""
+    m = {"tet3": jmesh.grid_tet(3), "tet16": jmesh.grid_tet(16)}[mesh]
+    ke = jmesh.synthetic_stiffness(m, d, seed=7)
+    js = jscatter.build_assembly_schedule(m.conn, d,
+                                          coloring_provider=provider)
+    ts = tscatter.build_assembly_schedule(m.conn, d,
+                                          coloring_provider=provider)
+    assert ts.colored.repeats == (provider == "race")
+    got = tkern.colored_scatter_onehot_plain(ts.colored,
+                                             torch.from_numpy(ke))
+    np.testing.assert_array_equal(got.numpy(),
+                                  jscatter.scatter_serial(js, ke))
+
+
+@pytest.mark.parametrize("case", ["race_fan", "tile_over_one_pass",
+                                  "empty_tile", "empty_color",
+                                  "i16_targets_32767"])
+def test_k14_adversary_packs_have_their_features(case):
+    """``chip_smoke.py``'s adversary assemblies for K14 (shared with the
+    card tests) give packs with the feature each case aims at — a run over
+    two pass ends, a tile over one pass, an empty tile between full ones,
+    an empty color, int16 targets up to 32,766 — and on them both plain
+    versions equal the serial oracle."""
+    sm = chip_smoke()
+    sched, ke = sm.assembly_adversary(case, seed=0)
+    geometry = sm.assembly_pack_geometry(sched.colored)
+    assert sm.assembly_case_holds(case, geometry), geometry
+    want = tscatter.scatter_serial(sched, ke)
+    k = torch.from_numpy(ke)
+    for plain in (tkern.colored_scatter_onehot_plain,
+                  tkern.colored_scatter_stream_plain):
+        np.testing.assert_array_equal(plain(sched.colored, k).numpy(), want)
 
 
 def test_malformed_packs_raise_before_any_launch():
@@ -394,7 +449,7 @@ def test_wrappers_validate_and_never_launch_on_cpu():
 def test_streamed_bytes_count_the_function_not_the_layout(name, d):
     """K13 and K14 compute one function and share its byte count: each
     real entry's slot, target and contribution once, the vector once.
-    Padding and K14's buckets are the layout's, counted apart."""
+    Padding (K13) and K14's ``ptr`` are the layout's, counted apart."""
     _, _, _, ts = _pair(name, d)
     packs = ts.colored
     idx = packs.slots.element_size() + packs.tgts.element_size()
@@ -404,8 +459,7 @@ def test_streamed_bytes_count_the_function_not_the_layout(name, d):
     pad = (packs.slots.numel() - ts.num_contribs) * idx
     assert pad > 0
     assert packs.layout_bytes("stream") == pad
-    assert packs.layout_bytes("onehot") == pad + 4 * (packs.order.numel()
-                                                      + packs.ptr.numel())
+    assert packs.layout_bytes("onehot") == 4 * packs.ptr.numel()
 
 
 # ---------------------------------------------------------------------------

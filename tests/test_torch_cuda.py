@@ -348,3 +348,45 @@ def test_assemble_on_the_card_binds_once_and_keeps_values_there(card):
         assert d.total("assembly_pack_uploads_total", part=part) == 1, part
     assert d.merged_hist("assembly_device_seconds", strategy="colored",
                          variant="stream").get("count") == 1
+
+
+@pytest.mark.parametrize("case", ["race_fan", "tile_over_one_pass",
+                                  "empty_tile", "empty_color",
+                                  "i16_targets_32767"])
+def test_k14_equals_plain_and_oracle_on_adversarial_packs(card, case):
+    """K14 on ``chip_smoke.py``'s adversary assemblies (runs over pass
+    ends, a tile over one pass, an empty tile and color, int16 targets at
+    the sentinel 32,767): equal to its plain version and to the serial
+    oracle bit for bit on dyadic stiffness, and two runs bit for bit."""
+    sm = chip_smoke()
+    sched, ke = sm.assembly_adversary(case, seed=0)
+    packs = sched.bind(card).colored
+    assert sm.assembly_case_holds(case, sm.assembly_pack_geometry(packs))
+    k = torch.from_numpy(ke).to(card).reshape(-1)
+    got = ak.colored_scatter_onehot_cuda(packs, k)
+    assert torch.equal(got, ak.colored_scatter_onehot_plain(packs, k))
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  ascatter.scatter_serial(sched, ke))
+    assert torch.equal(got, ak.colored_scatter_onehot_cuda(packs, k))
+
+
+@pytest.mark.parametrize("case", ["hub_fills_chunks", "run_crosses_pass",
+                                  "r_pad_4096", "bf16_i16"])
+def test_k12_equals_plain_on_adversarial_packs(card, case):
+    """K12 on ``chip_smoke.py``'s adversary packs (a hub row filling whole
+    chunks, runs cut by a pass end, r_pad 4096, bfloat16 / int16) at B = 1,
+    3, 11 and 64: equal to its plain version bit for bit on dyadic data,
+    and two runs bit for bit."""
+    sm = chip_smoke()
+    vdt, idt, ks = sm.NNZ_ADVERSARIES[case]
+    arrays = sm.nnzsplit_adversary_arrays(case, seed=0)
+    M = csrc.from_assembly(arrays[0].shape[0] - 1, *arrays)
+    pack = nz.pack_nnzsplit(M, ks=ks, dtype=vdt, index_dtype=idt).to(card)
+    assert sm.nnzsplit_case_holds(case, sm.nnzsplit_chunk_geometry(pack))
+    rng = np.random.default_rng(6)
+    for nrhs in (1, 3, 11, 64):
+        X = torch.from_numpy((rng.integers(-8, 9, (M.n, nrhs)) / 8
+                              ).astype(np.float32)).to(card)
+        got = nz.nnzsplit_spmm_onehot_cuda(pack, X)
+        assert torch.equal(got, nz.nnzsplit_partials_onehot_plain(pack, X))
+        assert torch.equal(got, nz.nnzsplit_spmm_onehot_cuda(pack, X))

@@ -41,6 +41,7 @@ from repro_torch.kernels import csrc_spmv_stream as tstream
 from repro_torch.kernels import ops as tops
 from repro_torch.serve import SpmvServingEngine
 
+from _smoke import chip_smoke
 from test_torch_parity_helpers import (MATRICES, dyadic, dyadic_x,
                                        empty_rows, np32, to_torch_csrc)
 
@@ -353,6 +354,36 @@ def test_onehot_plain_grouping_does_not_change_result(monkeypatch):
     whole = tnz.nnzsplit_partials_onehot_plain(pt, x)
     monkeypatch.setattr(tnz, "_MASK_ELEMENTS", 1)     # one chunk per group
     assert torch.equal(whole, tnz.nnzsplit_partials_onehot_plain(pt, x))
+
+
+@pytest.mark.parametrize("case", ["hub_fills_chunks", "run_crosses_pass",
+                                  "r_pad_4096", "bf16_i16"])
+def test_k12_adversary_packs_have_their_features(case):
+    """``chip_smoke.py``'s adversary matrices for K12 (shared with the card
+    tests) give packs with the feature each case aims at — a chunk of one
+    row, a run cut by the end of a kernel pass, r_pad 4096, bfloat16 /
+    int16 streams — and on them the one-hot plain version equals the
+    stream one on dyadic X (n, 3)."""
+    sm = chip_smoke()
+    vdt, idt, ks = sm.NNZ_ADVERSARIES[case]
+    arrays = sm.nnzsplit_adversary_arrays(case, seed=0)
+    M = tcsrc.from_assembly(arrays[0].shape[0] - 1, *arrays)
+    pack = tnz.pack_nnzsplit(M, ks=ks, dtype=vdt, index_dtype=idt)
+    geometry = sm.nnzsplit_chunk_geometry(pack)
+    assert sm.nnzsplit_case_holds(case, geometry), geometry
+    X = torch.from_numpy(dyadic_x(M.n, 3, seed=1))
+    assert torch.equal(tnz.nnzsplit_partials_onehot_plain(pack, X),
+                       tnz.nnzsplit_partials_stream_plain(pack, X))
+
+
+@pytest.mark.parametrize("r_pad,nrhs,tile", [
+    (128, 11, 11), (128, 64, 25), (4096, 64, 2), (4096, 1, 1)])
+def test_k12_column_tile_fits_the_shared_memory_budget(r_pad, nrhs, tile):
+    """K12's column tile: the (r_pad, BT) partial, the (512, BT) staged
+    products and the r_pad + 1 row pointers of a pass fit 64 KB."""
+    bt = tnz._onehot_tile(r_pad, nrhs)
+    assert bt == tile
+    assert 4 * ((r_pad + tnz._STAGE) * bt + r_pad + 1) <= 64 * 1024
 
 
 def test_wrappers_validate_and_never_launch_on_cpu():
