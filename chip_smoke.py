@@ -384,7 +384,7 @@ NNZ_ADVERSARIES = {
 
 def nnzsplit_adversary_arrays(case, seed):
     """A small matrix (dyadic values) whose nnz-split pack (``NNZ_ADVERSARIES``
-    gives its dtypes and ks) stresses K12's row runs:
+    gives its dtypes and ks) stresses K11/K12's row runs:
 
       hub_fills_chunks  a star graph's centre: one row fills whole chunks,
                         so one thread per column adds 1,024 entries;
@@ -406,7 +406,7 @@ def nnzsplit_adversary_arrays(case, seed):
 
 
 def nnzsplit_chunk_geometry(pack):
-    """What the K12 adversary cases aim at, read off an ``NnzSplitPack``:
+    """What the K11/K12 adversary cases aim at, read off an ``NnzSplitPack``:
     the chunks holding one row only, the runs cut by the end of a kernel
     pass (``csrc_spmv_nnzsplit._STAGE`` entries), r_pad and the dtypes."""
     from repro_torch.kernels.csrc_spmv_nnzsplit import _STAGE
@@ -1316,6 +1316,11 @@ def phase_path_kernels(work: Workload, eng, spec, launches):
         abs_plain = _runners(abs_pack(pack), ks)[kname][1]
         err = _compare(f"path/{kname}", kernel, plain, x, exact=False,
                        abs_plain=abs_plain)
+        if kname == "nnzsplit_spmv_onehot":
+            # K11 is K12's body at one column: the same sums, bit for bit
+            k12 = _runners(pack, ks)["nnzsplit_spmm_onehot"][0]
+            check(torch.equal(kernel(x), k12(x[:, None])[..., 0]),
+                  "path/nnzsplit_spmv_onehot: differs from K12's column 0")
         csr = work.csr[mid]
         lib = torch.sparse_csr_tensor(
             torch.from_numpy(csr.indptr.astype(np.int64)),
@@ -1355,9 +1360,29 @@ def phase_path_kernels(work: Workload, eng, spec, launches):
             "shape": {"matrix": mid, "nrhs": nrhs, **_pack_report(
                 work.M[mid], pack)},
             "bytes": bytes_moved, "flops": flops, **extra})
+        if kname == "nnzsplit_spmv_stream":
+            _k11_on_hub_rows(pack, x, mid, ms, max(t_bytes, t_ops))
         del x
         torch.cuda.empty_cache()
     return rows
+
+
+def _k11_on_hub_rows(pack, x, mid, k9_ms, bound_ms):
+    """K11 on the power-law pack beside K9 (its order of additions keeps
+    each row's run in slot order, one thread per row, so a hub row's
+    chunks are its slowest): held against its plain version, timed."""
+    kernel, plain = _runners(pack, 8)["nnzsplit_spmv_onehot"]
+    abs_plain = _runners(abs_pack(pack), 8)["nnzsplit_spmv_onehot"][1]
+    err = _compare("k11_hub/nnzsplit_spmv_onehot", kernel, plain, x,
+                   exact=False, abs_plain=abs_plain)
+    dest = pack.chunk_row0[:, None].long() + pack.lrow.long()
+    emit("k11_hub", matrix=mid, k11_ms=time_ms(lambda: kernel(x)),
+         k9_ms=k9_ms, bound_ms=bound_ms, max_abs_err=err,
+         chunks=pack.num_chunks,
+         largest_row_entries=int(torch.bincount(dest.reshape(-1)).max()),
+         largest_row_chunks=int(torch.bincount(
+             pack.chunk_row0.long()).max()),
+         tolerance=f"{TOL} of the row's absolute sum")
 
 
 def phase_colorful(side: int, seed: int):
@@ -1448,9 +1473,10 @@ def _assembly_kernel_cases(seed):
     exact on dyadic stiffness: tri / quad / tet meshes with 1-3 DOFs per
     node, int16 and int32 streams (both gates, the int16-overflow
     connectivity), a single element, a RACE coloring whose colors repeat
-    targets (K13 adds with atomics), a mid-size tet, and the packs of
-    ``assembly_adversary`` aimed at K14's runs and passes (an empty color
-    among them); each of those is checked for its feature first."""
+    targets (K13's adds to them land in atomic order), a mid-size tet, and
+    the packs of ``assembly_adversary`` aimed at K14's runs and passes (an
+    empty color among them); each of those is checked for its feature
+    first."""
     from repro_torch.assembly import mesh as amesh
     from repro_torch.assembly import scatter as asc
     from repro_torch.kernels import assembly_scatter as ak
@@ -1509,7 +1535,7 @@ def _assembly_kernel_cases(seed):
                        "colors": packs.num_colors,
                        "lmax": packs.lmax, "size": sched.size,
                        "index_dtypes": sched.index_dtypes,
-                       "atomic": packs.repeats, "exact": True,
+                       "repeats": packs.repeats, "exact": True,
                        "max_err": max(errs.values())})
         del packs, k
     torch.cuda.empty_cache()
@@ -1609,7 +1635,7 @@ def phase_assembly(seed: int, cubes):
              lmax=int(sched.color_slots.shape[1]),
              pad_ratio=round(sched.color_slots.size / G, 4),
              index_dtypes=sched.index_dtypes,
-             tiles=sched.colored.num_tiles, atomic=sched.colored.repeats)
+             tiles=sched.colored.num_tiles, repeats=sched.colored.repeats)
         check(not sched.colored.repeats,
               "a greedy color repeats a target")
 
@@ -1764,14 +1790,17 @@ def phase_assembly(seed: int, cubes):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def phase_assembly_kernels(sched, ke, launches, cubes):
+def phase_assembly_kernels(sched, ke, launches, cubes, seed):
     """K13 and K14 at the assembly path's shapes: against their plain
-    versions (exact), timed, beside their bound and one library call (an
-    ``index_add_`` of all contributions at their targets)."""
+    versions (exact; K13 also on standard-normal contributions), timed,
+    beside their bound and one library call (an ``index_add_`` of all
+    contributions at their targets)."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import assembly_scatter as ak
     packs = sched.bind("cuda").colored
     k = torch.from_numpy(ke).cuda().reshape(-1)
+    k_normal = torch.randn(k.numel(), generator=torch.Generator(
+        "cuda").manual_seed(seed), device="cuda")
     targets = torch.from_numpy(np.asarray(sched.targets)).cuda()
     out = torch.zeros(sched.size, device="cuda")
     library_ms = time_ms(lambda: out.index_add_(0, targets, k))
@@ -1784,6 +1813,11 @@ def phase_assembly_kernels(sched, ke, launches, cubes):
              ak.colored_scatter_onehot_plain)):
         err = _compare(f"path/{kname}", lambda x: kernel(packs, x),
                        lambda x: plain(packs, x), k, exact=True)
+        if variant == "stream" and not packs.repeats:
+            # greedy colors: one add per target and color, in color order
+            # in both, so general values agree bit for bit too
+            _compare(f"path/{kname}/normal", lambda x: kernel(packs, x),
+                     lambda x: plain(packs, x), k_normal, exact=True)
         ms = time_ms(lambda: kernel(packs, k))
         plain_ms = time_ms(lambda: plain(packs, k))
         bytes_moved = packs.streamed_bytes()
@@ -1804,10 +1838,10 @@ def phase_assembly_kernels(sched, ke, launches, cubes):
                       "tiles": packs.num_tiles, "size": sched.size,
                       "contributions": sched.num_contribs,
                       "index_dtypes": sched.index_dtypes,
-                      "atomic": packs.repeats},
+                      "repeats": packs.repeats},
             "bytes": bytes_moved,
             "layout_bytes": packs.layout_bytes(variant), "flops": flops})
-    del out, targets, k
+    del out, targets, k, k_normal
     torch.cuda.empty_cache()
     return rows
 
@@ -1870,7 +1904,8 @@ def main() -> int:
         check(counts[name] > 0, f"kernel {name} was never launched on the "
               "assembly path's main run")
         launches[name] = counts[name]
-    rows += phase_assembly_kernels(sched, ke0, launches, args.cubes)
+    rows += phase_assembly_kernels(sched, ke0, launches, args.cubes,
+                                   args.seed)
     emit("assembly_phase", seconds=round(time.perf_counter() - t0, 3))
     del sched, ke0
     gc.collect()

@@ -3,105 +3,105 @@
 // Replaces the TPU body kernels/assembly_scatter.py::_colored_kernel_stream
 // of the JAX package: grid (C,), program c gathers color c's contributions
 // and segment-sums them by target into the whole output, which the grid
-// revisits color after color.  On the TPU the grid runs in order; here the
-// colors become serial phases of ONE cooperative launch: every thread
-// grid-strides over color c's Lmax entries, then the grid synchronizes
-// (cooperative_groups grid barrier) and moves to color c + 1.  The kernel
-// zeroes the output itself in a phase 0, so an assembly is one launch.
+// revisits color after color.  On the TPU the grid runs in order; here each
+// color is one ordinary launch on the caller's stream, one thread per pack
+// entry, and stream order keeps the colors in order.  The wrapper hands in
+// a zeroed output (torch.zeros); one call launches the C colors.
 //
-// Inside a greedy color no two elements share a DOF, so every target is
-// written once: the add is a plain load-add-store with no atomics (the
-// paper's conflict-free discipline).  A RACE level group may share nodes
-// inside one color; the wrapper then sets `atomic` and the adds become
-// atomicAdd.  The load goes through L2 (__ldcg): another SM may have written
-// the word in an earlier color.
+// Every add is a fire-and-forget `red.global.add.f32` (atomicAdd with its
+// result unused): nothing waits for the word's old value.  Inside a greedy
+// color no two elements share a DOF, so a target takes at most one add per
+// color, and the colors run in order, so each target's adds land in color
+// order — the TPU body's order, bit for bit.  A RACE level group may repeat
+// a target inside one color; those adds land in atomic order (exact on
+// dyadic data).  Like every float `red`/`atom` add, this one flushes
+// subnormal inputs and results to zero (PTX ISA); stiffness contributions
+// are never subnormal, and the plain version's `index_add_` on the card does
+// the same.
 //
-// The grid is sized to the blocks that fit on the card at once (occupancy x
-// SMs); a larger cooperative grid would be refused, and the error code goes
-// back to the wrapper, which raises.
+// The slot, target and contribution loads are cache-streaming (__ldcs:
+// evict first), so the 0.68 GB that an assembly reads once does not push out
+// of L2 the 36.7 MB vector that every color's adds sweep.  Consecutive
+// threads take consecutive entries, so each warp's loads and adds cover 32
+// consecutive entries of the element-major pack (a few sectors of each
+// stream, nearly contiguous contributions).
+//
+// Before: one cooperative launch, a load-add-store per entry in greedy
+// colors (`out[t] = __ldcg(out + t) + v`: an L2 round trip the store waited
+// on), a grid barrier after an in-kernel zeroing and after every color —
+// 1.228 ms at the full tet mesh.  tools/k13_launch_probe.py times the
+// same body behind grid barriers, with grouped loads and without the
+// streaming hint.
 //
 // Bound on this card: bytes — per entry a 4-byte contribution and the two
-// index streams, plus the unified vector written once (it fits in the 50 MB
-// L2, where the scattered read-modify-writes land).
-#include <cooperative_groups.h>
-
+// index streams, plus the unified vector written once; what is left above
+// it is the L2 throughput of 56.6 M scattered adds, each color's a sweep
+// over the whole vector (the library's index_add_ takes the elements in
+// mesh order instead).
 #include "assembly_common.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
 
-template <typename S, typename T, bool kAtomic>
-__global__ void __launch_bounds__(kThreads)
-colored_stream_kernel(const S* __restrict__ slots, const T* __restrict__ tgts,
-                      const float* __restrict__ kvals, float* out,
-                      int num_colors, int lmax, int num_contribs, int size) {
-  cg::grid_group grid = cg::this_grid();
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const long long first =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  for (long long i = first; i < size; i += stride) out[i] = 0.0f;
-  grid.sync();
-  for (int c = 0; c < num_colors; ++c) {
-    const size_t row = static_cast<size_t>(c) * lmax;
-    for (long long i = first; i < lmax; i += stride) {
-      const int s = load_index(slots, row + i);
-      const int t = load_index(tgts, row + i);
-      if (!in_range(s, num_contribs) || !in_range(t, size)) continue;
-      const float v = kvals[s];
-      if (kAtomic) {
-        atomicAdd(out + t, v);
-      } else {
-        out[t] = __ldcg(out + t) + v;
-      }
-    }
-    grid.sync();
+// Entry i of one color's row: its contribution added at its target; a
+// sentinel (or any index out of range) adds nothing.
+template <typename S, typename T>
+__device__ __forceinline__ void add_entry(const S* __restrict__ slots,
+                                          const T* __restrict__ tgts,
+                                          const float* __restrict__ kvals,
+                                          float* out, long long i,
+                                          int num_contribs, int size) {
+  const int s = __ldcs(slots + i);
+  const int t = __ldcs(tgts + i);
+  if (in_range(s, num_contribs) && in_range(t, size)) {
+    atomicAdd(out + t, __ldcs(kvals + s));
   }
 }
 
-template <typename S, typename T, bool kAtomic>
-cudaError_t launch(const void* slots, const void* tgts, const void* kvals,
-                   void* out, int num_colors, int lmax, int num_contribs,
-                   int size, cudaStream_t stream) {
-  auto kernel = colored_stream_kernel<S, T, kAtomic>;
-  int device = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kThreads, 0);
-  if (err != cudaSuccess) return err;
-  const S* s_ = static_cast<const S*>(slots);
-  const T* t_ = static_cast<const T*>(tgts);
-  const float* k_ = static_cast<const float*>(kvals);
-  float* o_ = static_cast<float*>(out);
-  void* args[] = {&s_, &t_, &k_, &o_, &num_colors, &lmax, &num_contribs,
-                  &size};
-  return cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
-                                     dim3(per_sm * sms), dim3(kThreads), args,
-                                     0, stream);
+template <typename S, typename T>
+__global__ void __launch_bounds__(kThreads)
+color_stream_kernel(const S* __restrict__ slots, const T* __restrict__ tgts,
+                    const float* __restrict__ kvals, float* out, int lmax,
+                    int num_contribs, int size) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i < lmax) add_entry(slots, tgts, kvals, out, i, num_contribs, size);
+}
+
+template <typename S, typename T>
+cudaError_t launch_colors(const void* slots, const void* tgts,
+                          const void* kvals, void* out, int num_colors,
+                          int lmax, int num_contribs, int size,
+                          cudaStream_t stream) {
+  const int blocks = (lmax + kThreads - 1) / kThreads;
+  for (int c = 0; c < num_colors; ++c) {
+    const size_t row = static_cast<size_t>(c) * lmax;
+    color_stream_kernel<S, T><<<blocks, kThreads, 0, stream>>>(
+        static_cast<const S*>(slots) + row, static_cast<const T*>(tgts) + row,
+        static_cast<const float*>(kvals), static_cast<float*>(out), lmax,
+        num_contribs, size);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
 
 extern "C" int assembly_colored_stream(const void* slots, const void* tgts,
                                        const void* kvals, void* out,
-                                       int num_colors, int lmax, int atomic,
+                                       int num_colors, int lmax,
                                        int num_contribs, int size,
                                        int slot_i16, int tgt_i16,
                                        void* stream) {
+  if (lmax < 1) return static_cast<int>(cudaSuccess);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaSuccess;
-#define LAUNCH(S, T)                                                         \
-  err = atomic ? launch<S, T, true>(slots, tgts, kvals, out, num_colors,     \
-                                    lmax, num_contribs, size, st)            \
-               : launch<S, T, false>(slots, tgts, kvals, out, num_colors,    \
-                                     lmax, num_contribs, size, st)
+#define LAUNCH(S, T)                                                       \
+  err = launch_colors<S, T>(slots, tgts, kvals, out, num_colors, lmax,     \
+                            num_contribs, size, st)
   ASSEMBLY_DISPATCH(slot_i16, tgt_i16, LAUNCH);
 #undef LAUNCH
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }

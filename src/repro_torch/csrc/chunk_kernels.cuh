@@ -18,8 +18,8 @@
 //
 // One block owns one (chunk, column tile) pair: grid (C, ceil(B / BT)).
 //
-// Bodies: the warp-segmented stream sums (K9, K10), the row-run sums of the
-// one-hot SpMM (K12) and the fixed-order scan of the one-hot SpMV (K11).
+// Bodies: the warp-segmented stream sums (K9, K10) and the row-run sums of
+// the one-hot products (K12, and K11 as its one-column instance).
 #pragma once
 
 #include "blockell_common.cuh"
@@ -135,10 +135,11 @@ inline int launch_chunk_stream(const void* vals, const void* lrow,
 }
 
 // ---------------------------------------------------------------------------
-// One-hot SpMM: one thread per (row, column) sums its row's run (K12)
+// One-hot products: one thread per (row, column) sums its row's run (K11 at
+// B = BT = 1, K12)
 // ---------------------------------------------------------------------------
 //
-// The TPU body contracts the (S, r_pad) one-hot of lrow with the chunk's
+// The TPU bodies contract the (S, r_pad) one-hot of lrow with the chunk's
 // (S, B) products.  lrow never decreases inside a chunk (checked wherever a
 // pack is built, loaded or converted: check_chunk_streams), so row r's
 // entries are one run, and padding (value 0, src 0, the stream's last row)
@@ -159,10 +160,12 @@ inline int launch_chunk_stream(const void* vals, const void* lrow,
 //                 starts at 0 — a run cut by the end of a pass continues in
 //                 the next one unchanged.
 //
-// That is the scan body's order of additions (below), so the two agree bit
-// for bit.  Work per chunk: O(S·B + r_pad·B) against the scan's
-// S·r_pad·B compares.  An lrow outside [0, r_pad), which a checked pack
-// never holds, joins no run.
+// Each row's sum is its entries' rounded products in slot order from 0, the
+// order of the fixed-order scan that K11 and K12 used before (one thread
+// per row comparing every entry of the chunk with its row), so K11 equals
+// K12's column 0 and both equal that scan bit for bit.  Work per chunk:
+// O(S·B + r_pad·B) against the scan's S·r_pad·B compares.  An lrow outside
+// [0, r_pad), which a checked pack never holds, joins no run.
 
 constexpr int kRunThreads = 256;
 
@@ -247,85 +250,6 @@ inline int launch_chunk_runs(const void* vals, const void* lrow,
     cudaError_t e = allow_dynamic_smem(chunk_runs_kernel<V, I>, smem);       \
     if (e != cudaSuccess) return static_cast<int>(e);                        \
     chunk_runs_kernel<V, I><<<grid, kRunThreads, smem, st>>>(                \
-        static_cast<const V*>(vals), static_cast<const I*>(lrow),            \
-        static_cast<const I*>(src), static_cast<const float*>(x),            \
-        static_cast<float*>(out), s, r_pad, n, nrhs, bt);                    \
-  } while (0)
-  BLOCKELL_DISPATCH(val_bf16, idx_i16, LAUNCH);
-#undef LAUNCH
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ---------------------------------------------------------------------------
-// One-hot SpMV: one thread per row, fixed-order scan (K11 only)
-// ---------------------------------------------------------------------------
-
-template <typename V, typename I>
-__global__ void __launch_bounds__(kChunkThreads)
-chunk_onehot_kernel(const V* __restrict__ vals, const I* __restrict__ lrow,
-                    const I* __restrict__ src, const float* __restrict__ x,
-                    float* __restrict__ out, int s, int r_pad, int n,
-                    int nrhs, int bt) {
-  extern __shared__ float smem[];
-  __shared__ int key[kStage];             // lrow of the staged entries
-  const int c = blockIdx.x;
-  const int j0 = blockIdx.y * bt;
-  const int cols = min(bt, nrhs - j0);
-  const int tid = threadIdx.x;
-  const int items = r_pad * cols;
-  float* acc = smem;                                        // (r_pad, cols)
-  float* prod = smem + static_cast<size_t>(r_pad) * bt;     // (kStage, cols)
-  for (int q = tid; q < items; q += kChunkThreads) acc[q] = 0.0f;
-
-  const size_t base = static_cast<size_t>(c) * s;
-  for (int e0 = 0; e0 < s; e0 += kStage) {
-    const int len = min(kStage, s - e0);
-    __syncthreads();   // the previous stage has been consumed
-    for (int i = tid; i < len * cols; i += kChunkThreads) {
-      const int e = i / cols;
-      const int j = i - e * cols;
-      const size_t p = base + e0 + e;
-      if (j == 0) key[e] = load_index(lrow, p);
-      prod[i] = load_value(vals, p) *
-                gather_x(x, load_index(src, p), n, nrhs, j0 + j);
-    }
-    __syncthreads();
-    // thread (r, j) adds the products of row r in slot order: no mask is
-    // built, no atomics, the same order on every run
-    for (int q = tid; q < items; q += kChunkThreads) {
-      const int r = q / cols;
-      const int j = q - r * cols;
-      float a = acc[q];
-      for (int i = 0; i < len; ++i) {
-        if (key[i] == r) a += prod[i * cols + j];
-      }
-      acc[q] = a;
-    }
-  }
-  __syncthreads();
-
-  float* dst = out + static_cast<size_t>(c) * r_pad * nrhs;
-  for (int q = tid; q < items; q += kChunkThreads) {
-    const int r = q / cols;
-    const int j = q - r * cols;
-    dst[static_cast<size_t>(r) * nrhs + j0 + j] = acc[q];
-  }
-}
-
-inline int launch_chunk_onehot(const void* vals, const void* lrow,
-                               const void* src, const void* x, void* out,
-                               int num_chunks, int s, int r_pad, int n,
-                               int nrhs, int bt, int val_bf16, int idx_i16,
-                               void* stream) {
-  const size_t smem =
-      (static_cast<size_t>(r_pad) + kStage) * bt * sizeof(float);
-  const dim3 grid(num_chunks, (nrhs + bt - 1) / bt);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define LAUNCH(V, I)                                                         \
-  do {                                                                       \
-    cudaError_t e = allow_dynamic_smem(chunk_onehot_kernel<V, I>, smem);     \
-    if (e != cudaSuccess) return static_cast<int>(e);                        \
-    chunk_onehot_kernel<V, I><<<grid, kChunkThreads, smem, st>>>(            \
         static_cast<const V*>(vals), static_cast<const I*>(lrow),            \
         static_cast<const I*>(src), static_cast<const float*>(x),            \
         static_cast<float*>(out), s, r_pad, n, nrhs, bt);                    \

@@ -14,9 +14,13 @@ widened in registers.
 
   'stream'  K13, csrc/assembly_colored_stream.cu — replaces the TPU body
             kernels/assembly_scatter.py::_colored_kernel_stream.  One
-            cooperative launch per assembly, a grid barrier between colors;
-            a plain load-add-store when no color repeats a target (greedy),
-            ``atomicAdd`` when one does (RACE level groups).  Bound by bytes.
+            ordinary launch per color on one stream into a zeroed vector,
+            one thread per entry, cache-streaming loads; every add a
+            fire-and-forget ``red`` (``atomicAdd``, result unused).  A
+            greedy color adds to a target at most once and the colors run
+            in stream order, so each target's adds land in color order; a
+            RACE level group's repeated targets land in atomic order.
+            Bound by bytes.
   'onehot'  K14, csrc/assembly_colored_onehot.cu — replaces
             ::_colored_kernel_onehot, ported from its math, not its grid:
             one block per 512-wide output tile owns it across all colors,
@@ -57,7 +61,7 @@ _MASK_ELEMENTS = 1 << 25
 
 K13 = _build.register(_build.Kernel(
     "assembly_colored_stream",
-    [_P] * 4 + [_I] * 7 + [_P],
+    [_P] * 4 + [_I] * 6 + [_P],
     replaces="src/repro/kernels/assembly_scatter.py:102"))
 K14 = _build.register(_build.Kernel(
     "assembly_colored_onehot",
@@ -82,7 +86,8 @@ class ColoredPacks:
     ties in slot order.  K14 reads them as ``bucket_slots`` /
     ``bucket_tgts``, the two streams permuted by ``order``, so a bucket is
     a contiguous range.  ``repeats`` says whether some color writes one
-    target twice (a RACE level group can): K13 then adds with atomics.
+    target twice (a RACE level group can): K13's adds to that target
+    inside the color then land in atomic order.
     Derived from the packs by :func:`pack_colored_streams`, never
     stored."""
 
@@ -288,13 +293,13 @@ def _flags(packs: ColoredPacks, device) -> tuple:
 
 
 def _launch(kernel, packs: ColoredPacks, kflat: torch.Tensor,
-            streams, extra_ints) -> torch.Tensor:
+            streams, extra_ints, alloc=torch.empty) -> torch.Tensor:
     if not kflat.is_cuda:
         raise ValueError("the CUDA kernels take CUDA tensors; a CPU tensor "
                          "goes to the plain version")
     k = _contribs(packs, kflat)
     flags = _flags(packs, k.device)
-    out = torch.empty(packs.size, dtype=torch.float32, device=k.device)
+    out = alloc(packs.size, dtype=torch.float32, device=k.device)
     args = [*(a.data_ptr() for a in streams),
             k.data_ptr(), out.data_ptr(), packs.num_colors, packs.lmax,
             *extra_ints, packs.num_contribs, packs.size,
@@ -306,10 +311,10 @@ def _launch(kernel, packs: ColoredPacks, kflat: torch.Tensor,
 
 def colored_scatter_stream_cuda(packs: ColoredPacks,
                                 kflat: torch.Tensor) -> torch.Tensor:
-    """Launch K13 (one cooperative launch); returns the (size,) vector.
-    Atomic adds only when some color repeats a target."""
-    return _launch(K13, packs, kflat, [packs.slots, packs.tgts],
-                   [int(packs.repeats)])
+    """Launch K13 (one launch per color, adding into a vector zeroed
+    here); returns the (size,) vector."""
+    return _launch(K13, packs, kflat, [packs.slots, packs.tgts], [],
+                   alloc=torch.zeros)
 
 
 def colored_scatter_onehot_cuda(packs: ColoredPacks,

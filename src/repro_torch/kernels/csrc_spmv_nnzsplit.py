@@ -20,9 +20,9 @@ work is balanced over *non-zeros*, not rows:
 Geometry (``r_pad``, padding entries, dtypes, argsort order) is that of the
 JAX package's ``pack_nnzsplit``, array for array.  Streams are held as
 (C, S); the npz keeps the JAX package's ``(C, ks, 128)`` layout.  Because
-the stream is sorted, ``lrow`` never decreases inside a chunk; the stream
-kernels and K12 rely on that, so every pack is checked for it when it is
-built, loaded or converted (:func:`check_chunk_streams`).
+the stream is sorted, ``lrow`` never decreases inside a chunk; all four
+kernels rely on that, so every pack is checked for it when it is built,
+loaded or converted (:func:`check_chunk_streams`).
 
 Kernels, selected by ``variant``, all gather ``x[src]`` themselves (x stays
 in L2; the JAX package's gathered ``xg`` stream is never materialized):
@@ -34,11 +34,12 @@ in L2; the JAX package's gathered ``xg`` stream is never materialized):
             warp-segmented sum by ``lrow`` into a shared-memory row.
   'onehot'  K11, csrc/nnzsplit_spmv_onehot.cu, and K12,
             csrc/nnzsplit_spmm_onehot.cu — replace ::_kernel / ::_kernel_mm.
-            K11: one thread per row scans the chunk (S·r_pad compares per
-            chunk, bound by operations).  K12: ``lrow`` is sorted, so each
-            row's entries are one run; the thread of each (row, column) sums
-            its run (bound by bytes).  Both add in slot order: a fixed
-            summation order, bit-identical reruns.
+            One body (csrc/chunk_kernels.cuh ``chunk_runs_kernel``), K11 its
+            one-column instance: ``lrow`` is sorted, so each row's entries
+            are one run; the thread of each (row, column) sums its run in
+            slot order (bound by bytes).  A fixed summation order,
+            bit-identical reruns, and K11 equals K12's column 0 bit for
+            bit.
 
 Their plain PyTorch versions — the fused gather + ``index_add_`` form
 (``csrc_spmv_stream.nnzsplit_partials_fused``) and the chunk-by-chunk
@@ -204,7 +205,7 @@ def check_chunk_streams(lrow, src, chunk_row0, fixup_idx, *, n: int,
     """Raise ValueError unless the chunk streams are what the kernels
     assume: ``lrow`` in [0, r_pad) and non-decreasing inside each chunk
     (the dest-sorted order the warp-segmented sums of K9/K10 and the row
-    runs of K12 rely on), ``src`` in [0, n), and ``fixup_idx`` equal to
+    runs of K11/K12 rely on), ``src`` in [0, n), and ``fixup_idx`` equal to
     ``chunk_row0[c] + arange(r_pad)`` with ``chunk_row0`` in [0, n)."""
     lr = _np(lrow)
     if lr.ndim != 2:

@@ -276,14 +276,26 @@ def test_every_executor_equals_reference_serial(name, d, strategy, variant):
     np.testing.assert_array_equal(np.asarray(got), want)
 
 
-@pytest.mark.parametrize("variant", ["stream", "onehot"])
-@pytest.mark.parametrize("name,d", [("tri", 1), ("quad", 2), ("tet", 1)])
-def test_plain_kernels_equal_pallas_bodies(name, d, variant):
+PLAIN_BODY_MESHES = [("tri", 1), ("quad", 2), ("tet", 1)]
+
+
+@pytest.mark.parametrize("name,d,variant,values", [
+    *(pytest.param(name, d, variant, "dyadic", id=f"{name}-{d}-{variant}")
+      for variant in ("stream", "onehot") for name, d in PLAIN_BODY_MESHES),
+    *(pytest.param(name, d, "stream", "normal", id=f"{name}-{d}-stream-normal")
+      for name, d in PLAIN_BODY_MESHES)])
+def test_plain_kernels_equal_pallas_bodies(name, d, variant, values):
     """The plain versions of K13 / K14 against the TPU bodies run through
-    the emulated Pallas grid, on the same packs."""
+    the emulated Pallas grid, on the same packs: on the dyadic stiffness,
+    and K13's on seeded standard-normal contributions too — on a greedy
+    coloring each target takes at most one add per color in both, in color
+    order, so they agree bit for bit on any values."""
     mesh = {"tri": jmesh.grid_tri(5), "quad": jmesh.grid_quad(3),
             "tet": jmesh.grid_tet(2)}[name]
     ke = jmesh.synthetic_stiffness(mesh, d, seed=5)
+    if values == "normal":
+        ke = np.random.default_rng(5).standard_normal(ke.shape).astype(
+            np.float32)
     js = jscatter.build_assembly_schedule(mesh.conn, d)
     want = np.asarray(jkern.colored_scatter_grid(
         js.color_slots, js.color_targets, jnp.asarray(ke), js.size,
@@ -301,8 +313,9 @@ def test_plain_kernels_equal_pallas_bodies(name, d, variant):
 
 
 def test_race_packs_through_both_kernel_plain_versions():
-    """RACE colors repeat targets inside a color: the packs say so (K13
-    then adds with atomics) and both plain versions stay exact."""
+    """RACE colors repeat targets inside a color: the packs say so (K13's
+    adds to such a target land in atomic order) and both plain versions
+    stay exact."""
     _, ke, js, ts = _pair("tet", 3, "race", seed=17)
     assert ts.colored.repeats
     assert not _pair("tet", 3)[3].colored.repeats

@@ -282,7 +282,10 @@ ASSEMBLY_CASES = {
 def test_assembly_kernels_equal_plain_versions_and_oracle(card, case):
     """K13 and K14, each launched once, against their plain versions and
     the serial oracle on dyadic stiffness; K14 repeats bit for bit.  The
-    RACE case repeats targets inside a color, so K13 adds with atomics."""
+    RACE case repeats targets inside a color, whose adds then land in
+    atomic order.  On a greedy coloring K13 also equals its plain version
+    bit for bit on standard-normal contributions: a target takes at most
+    one add per color, in color order, in both."""
     make, d, provider = ASSEMBLY_CASES[case]
     mesh = make()
     sched = ascatter.build_assembly_schedule(mesh, d,
@@ -305,6 +308,11 @@ def test_assembly_kernels_equal_plain_versions_and_oracle(card, case):
     np.testing.assert_array_equal(stream.cpu().numpy(), want)
     np.testing.assert_array_equal(onehot.cpu().numpy(), want)
     assert torch.equal(onehot, ak.colored_scatter_onehot_cuda(packs, k))
+    if provider == "greedy":
+        kn = torch.from_numpy(np.random.default_rng(5).standard_normal(
+            ke.size).astype(np.float32)).to(card)
+        assert torch.equal(ak.colored_scatter_stream_cuda(packs, kn),
+                           ak.colored_scatter_stream_plain(packs, kn))
 
 
 def test_assembly_int16_overflow_empty_color_and_single_element(card):
@@ -357,33 +365,65 @@ def test_k14_equals_plain_and_oracle_on_adversarial_packs(card, case):
     """K14 on ``chip_smoke.py``'s adversary assemblies (runs over pass
     ends, a tile over one pass, an empty tile and color, int16 targets at
     the sentinel 32,767): equal to its plain version and to the serial
-    oracle bit for bit on dyadic stiffness, and two runs bit for bit."""
+    oracle bit for bit on dyadic stiffness, and two runs bit for bit.  K13
+    on the same packs equals both too (the RACE fan's repeated targets
+    land in atomic order, exact on dyadic data)."""
     sm = chip_smoke()
     sched, ke = sm.assembly_adversary(case, seed=0)
     packs = sched.bind(card).colored
     assert sm.assembly_case_holds(case, sm.assembly_pack_geometry(packs))
     k = torch.from_numpy(ke).to(card).reshape(-1)
+    want = ascatter.scatter_serial(sched, ke)
     got = ak.colored_scatter_onehot_cuda(packs, k)
     assert torch.equal(got, ak.colored_scatter_onehot_plain(packs, k))
-    np.testing.assert_array_equal(got.cpu().numpy(),
-                                  ascatter.scatter_serial(sched, ke))
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
     assert torch.equal(got, ak.colored_scatter_onehot_cuda(packs, k))
+    stream = ak.colored_scatter_stream_cuda(packs, k)
+    assert torch.equal(stream, ak.colored_scatter_stream_plain(packs, k))
+    np.testing.assert_array_equal(stream.cpu().numpy(), want)
 
 
-@pytest.mark.parametrize("case", ["hub_fills_chunks", "run_crosses_pass",
-                                  "r_pad_4096", "bf16_i16"])
-def test_k12_equals_plain_on_adversarial_packs(card, case):
+NNZ_CASES = ["hub_fills_chunks", "run_crosses_pass", "r_pad_4096",
+             "bf16_i16"]
+
+
+@pytest.mark.parametrize("case,kernel", [
+    *(pytest.param(case, "K12", id=case) for case in NNZ_CASES),
+    *(pytest.param(case, "K11", id=f"{case}-k11")
+      for case in NNZ_CASES + ["mid"])])
+def test_k12_equals_plain_on_adversarial_packs(card, case, kernel):
     """K12 on ``chip_smoke.py``'s adversary packs (a hub row filling whole
     chunks, runs cut by a pass end, r_pad 4096, bfloat16 / int16) at B = 1,
     3, 11 and 64: equal to its plain version bit for bit on dyadic data,
-    and two runs bit for bit."""
+    and two runs bit for bit.  K11 (K12's body at one column) on the same
+    packs and on a mid-size random pattern (dyadic values): equal to its
+    plain version on dyadic x, and to K12's column 0 bit for bit on
+    standard-normal x."""
     sm = chip_smoke()
-    vdt, idt, ks = sm.NNZ_ADVERSARIES[case]
-    arrays = sm.nnzsplit_adversary_arrays(case, seed=0)
+    if case == "mid":
+        vdt, idt, ks = torch.float32, torch.int32, 8
+        arrays = sm.random_arrays(20000, 0, dyadic=True)
+    else:
+        vdt, idt, ks = sm.NNZ_ADVERSARIES[case]
+        arrays = sm.nnzsplit_adversary_arrays(case, seed=0)
     M = csrc.from_assembly(arrays[0].shape[0] - 1, *arrays)
     pack = nz.pack_nnzsplit(M, ks=ks, dtype=vdt, index_dtype=idt).to(card)
-    assert sm.nnzsplit_case_holds(case, sm.nnzsplit_chunk_geometry(pack))
+    if case != "mid":
+        assert sm.nnzsplit_case_holds(case,
+                                      sm.nnzsplit_chunk_geometry(pack))
     rng = np.random.default_rng(6)
+    if kernel == "K11":
+        x = torch.from_numpy((rng.integers(-8, 9, M.n) / 8
+                              ).astype(np.float32)).to(card)
+        got = nz.nnzsplit_spmv_onehot_cuda(pack, x)
+        assert torch.equal(got, nz.nnzsplit_partials_onehot_plain(pack, x))
+        assert torch.equal(got, nz.nnzsplit_spmv_onehot_cuda(pack, x))
+        xn = torch.from_numpy(rng.standard_normal(M.n, dtype=np.float32)
+                              ).to(card)
+        assert torch.equal(nz.nnzsplit_spmv_onehot_cuda(pack, xn),
+                           nz.nnzsplit_spmm_onehot_cuda(pack,
+                                                        xn[:, None])[..., 0])
+        return
     for nrhs in (1, 3, 11, 64):
         X = torch.from_numpy((rng.integers(-8, 9, (M.n, nrhs)) / 8
                               ).astype(np.float32)).to(card)

@@ -356,14 +356,22 @@ def test_onehot_plain_grouping_does_not_change_result(monkeypatch):
     assert torch.equal(whole, tnz.nnzsplit_partials_onehot_plain(pt, x))
 
 
-@pytest.mark.parametrize("case", ["hub_fills_chunks", "run_crosses_pass",
-                                  "r_pad_4096", "bf16_i16"])
-def test_k12_adversary_packs_have_their_features(case):
-    """``chip_smoke.py``'s adversary matrices for K12 (shared with the card
-    tests) give packs with the feature each case aims at — a chunk of one
-    row, a run cut by the end of a kernel pass, r_pad 4096, bfloat16 /
+NNZ_ADVERSARY_CASES = ["hub_fills_chunks", "run_crosses_pass", "r_pad_4096",
+                       "bf16_i16"]
+
+
+@pytest.mark.parametrize("case,kernel", [
+    *(pytest.param(case, "K12", id=case) for case in NNZ_ADVERSARY_CASES),
+    *(pytest.param(case, "K11", id=f"{case}-k11")
+      for case in NNZ_ADVERSARY_CASES)])
+def test_k12_adversary_packs_have_their_features(case, kernel):
+    """``chip_smoke.py``'s adversary matrices for K11 / K12 (shared with the
+    card tests) give packs with the feature each case aims at — a chunk of
+    one row, a run cut by the end of a kernel pass, r_pad 4096, bfloat16 /
     int16 streams — and on them the one-hot plain version equals the
-    stream one on dyadic X (n, 3)."""
+    stream one on dyadic X (n, 3) (K12), and on x (n,) equals the one-hot
+    plain version's column 0 at B = 1 and the stream one (K11: K12's body
+    at one column)."""
     sm = chip_smoke()
     vdt, idt, ks = sm.NNZ_ADVERSARIES[case]
     arrays = sm.nnzsplit_adversary_arrays(case, seed=0)
@@ -371,9 +379,17 @@ def test_k12_adversary_packs_have_their_features(case):
     pack = tnz.pack_nnzsplit(M, ks=ks, dtype=vdt, index_dtype=idt)
     geometry = sm.nnzsplit_chunk_geometry(pack)
     assert sm.nnzsplit_case_holds(case, geometry), geometry
-    X = torch.from_numpy(dyadic_x(M.n, 3, seed=1))
-    assert torch.equal(tnz.nnzsplit_partials_onehot_plain(pack, X),
-                       tnz.nnzsplit_partials_stream_plain(pack, X))
+    if kernel == "K12":
+        X = torch.from_numpy(dyadic_x(M.n, 3, seed=1))
+        assert torch.equal(tnz.nnzsplit_partials_onehot_plain(pack, X),
+                           tnz.nnzsplit_partials_stream_plain(pack, X))
+        return
+    x = torch.from_numpy(dyadic_x(M.n, 1, seed=1))
+    got = tnz.nnzsplit_partials_onehot_plain(pack, x)
+    assert got.shape == (pack.num_chunks, pack.r_pad)
+    assert torch.equal(
+        got, tnz.nnzsplit_partials_onehot_plain(pack, x[:, None])[..., 0])
+    assert torch.equal(got, tnz.nnzsplit_partials_stream_plain(pack, x))
 
 
 @pytest.mark.parametrize("r_pad,nrhs,tile", [
