@@ -290,8 +290,9 @@ def gap_arrays(seed, gap=3999, width=600):
 
 def onehot_adversary_arrays(case, seed):
     """A small matrix (dyadic values, numerically non-symmetric, a band of
-    3 besides) whose packs stress the one-hot kernels' row runs and column
-    buckets (K3/K4 on the rectangular grid, K7/K8 on the flat one):
+    3 besides) whose packs stress the row runs and column buckets of the
+    one-hot kernels (K3/K4 on the rectangular grid, K7/K8 on the flat one)
+    and the warp runs of the stream SpMVs (K1, K5):
 
       row_spans_steps     rows 1000-1199 hold 1,000 slots each: over steps
                           of 128 slots a row's run fills whole steps and
@@ -303,7 +304,13 @@ def onehot_adversary_arrays(case, seed):
       padding_only_steps  rows 1024-1151 hold 200 slots each and rows
                           1152-1279 none: beside one dense tile the other
                           rectangular tiles fill their steps with padding;
-      w4096               rows from 3968 on reach 3968 back: W = 4096.
+      w4096               rows from 3968 on reach 3968 back: W = 4096;
+      warp_run_edges      row widths cycle over 1, 1, 1..33, 64, 128 and
+                          300: in the stream SpMVs' warps of 32 lanes x 4
+                          slots a run ends at each of the 128 positions,
+                          a lane holds four rows, a run fills one warp
+                          exactly, a longer one whole warps, and runs
+                          cross 256-slot strides and step ends.
 
     Returns (ia, ja, ad, al, au)."""
     n = 8192 if case == "w4096" else 3000
@@ -314,6 +321,9 @@ def onehot_adversary_arrays(case, seed):
     if case == "padding_only_steps":
         width[1024:1152] = 200
         width[1152:1280] = 0
+    if case == "warp_run_edges":
+        cycle = np.concatenate([[1, 1], np.arange(1, 34), [64, 128, 300]])
+        width = cycle[r % cycle.shape[0]]
     count = r - np.maximum(0, r - width)
     hi = np.repeat(r, count)
     lo = hi - 1 - (np.arange(hi.shape[0]) - np.repeat(np.cumsum(count)
@@ -339,7 +349,12 @@ def onehot_step_geometry(pack, step):
     rectangular ``BlockEll`` or the flat ``FlatBlockEll``) as rows of
     ``step`` slots: the steps holding one row's real slots only, the
     largest column bucket of a step, the steps of padding only and, on the
-    rectangular grid, the real slots of the emptiest and fullest tile."""
+    rectangular grid, the real slots of the emptiest and fullest tile.
+    For the stream SpMVs (K1, K5: lanes of 4 consecutive slots, warps of
+    128): the positions in a warp at which a row's run ends inside a step,
+    the lanes holding four rows, the warps whose slots hold one row (and
+    those of them holding a whole run), and the runs that cross a 256-slot
+    stride inside a step or the end of a step into the tile's next one."""
     rows = pack.row_in_win.long().reshape(-1, step)
     cols = pack.col_local.long().reshape(-1, step)
     real = cols < pack.w_pad
@@ -355,6 +370,32 @@ def onehot_step_geometry(pack, step):
     if hasattr(pack, "s"):                 # rectangular: NT tiles of S slots
         tiles = real.reshape(pack.nt, -1).sum(1)
         geometry["tile_real_slots"] = [int(tiles.min()), int(tiles.max())]
+        tile_of_step = torch.arange(rows.shape[0]) // (pack.s // step)
+    else:
+        tile_of_step = pack.tile_of_step.long().cpu()
+    # the warp runs, inside each step (a warp never crosses one)
+    same = (rows[:, 1:] == rows[:, :-1]) & real[:, 1:]
+    ends = real[:, :-1] & ~same
+    position = torch.arange(step - 1, device=rows.device) % 128
+    lanes = rows.reshape(rows.shape[0], -1, 4)
+    warps = rows.reshape(rows.shape[0], -1, 128)
+    one_row = ((warps == warps[..., :1]) & real.reshape(warps.shape)).all(-1)
+    opens = torch.ones_like(one_row)
+    opens[:, 1:] = warps[:, 1:, 0] != warps[:, :-1, -1]
+    closes = torch.ones_like(one_row)
+    closes[:, :-1] = warps[:, :-1, -1] != warps[:, 1:, 0]
+    passes = torch.arange(256, max(step, 256), 256, device=rows.device)
+    next_step = (tile_of_step[1:] == tile_of_step[:-1]).to(rows.device)
+    geometry.update({
+        "run_end_positions": int(torch.unique(
+            position[ends.any(0)]).numel()),
+        "four_row_lanes": int((lanes[..., 1:] != lanes[..., :-1]).all(-1)
+                              .sum()),
+        "one_row_warps": int(one_row.sum()),
+        "whole_run_warps": int((one_row & opens & closes).sum()),
+        "runs_over_pass": int(same[:, passes - 1].sum()),
+        "runs_over_step_end": int((next_step & real[1:, 0] & real[:-1, -1]
+                                   & (rows[1:, 0] == rows[:-1, -1])).sum())})
     return geometry
 
 
@@ -370,6 +411,13 @@ def onehot_case_holds(case, geometry) -> bool:
         lo, hi = geometry["tile_real_slots"]
         return (geometry["padding_only_steps"] > 0 and lo == 0
                 and hi > geometry["k_step"])
+    if case == "warp_run_edges":           # runs end everywhere in a warp
+        return (geometry["run_end_positions"] == 128
+                and geometry["four_row_lanes"] > 0
+                and geometry["whole_run_warps"] > 0
+                and geometry["one_row_warps"] > geometry["whole_run_warps"]
+                and geometry["runs_over_pass"] > 0
+                and geometry["runs_over_step_end"] > 0)
     return geometry["w_pad"] == 4096
 
 # K12's adversary packs (``nnzsplit_adversary_arrays``): case -> (value
@@ -827,10 +875,11 @@ def _exact_runs(name, runners, n, rng, widths=(1, 3, 64)):
 
 
 def _rect_onehot_cases(seed, rng):
-    """K1-K4 on rectangular packs that stress K3/K4's runs and buckets (see
-    ``onehot_adversary_arrays``), exact on dyadic data at B = 1, 3 and 64;
-    each case leaves K4 a partial column tile (tiles of 7 columns at
-    W = 1,152, of 2 at W = 3,200 and 4,096, of 21 at W = 384)."""
+    """K1-K4 on rectangular packs that stress K3/K4's runs and buckets and
+    K1's warp runs (see ``onehot_adversary_arrays``), exact on dyadic data
+    at B = 1, 3 and 64; the one-hot cases leave K4 a partial column tile
+    (tiles of 7 columns at W = 1,152, of 2 at W = 3,200 and 4,096, of 21 at
+    W = 384; warp_run_edges at W = 512 takes four whole tiles of 16)."""
     from repro_torch.core import blockell, csrc
     from repro_torch.kernels.csrc_spmm import column_tile
     cases = [
@@ -841,6 +890,8 @@ def _rect_onehot_cases(seed, rng):
         ("rect_padding_only_steps", "padding_only_steps", torch.float32,
          torch.int32, 8),
         ("rect_w4096_bf16_i16", "w4096", torch.bfloat16, torch.int16, 8),
+        ("rect_warp_run_edges", "warp_run_edges", torch.float32,
+         torch.int32, 8),
     ]
     report = []
     for name, case, vdt, idt, ks in cases:
@@ -864,10 +915,11 @@ def _rect_onehot_cases(seed, rng):
 
 
 def _flat_onehot_cases(seed, rng):
-    """K5-K8 on flat packs that stress K7/K8's runs and buckets (see
-    ``onehot_adversary_arrays``), exact on dyadic data at B = 1, 3 and 64;
-    each case leaves K8 a partial column tile (tiles of 7 columns at
-    W = 1,152, of 2 at W = 3,200 and 4,096)."""
+    """K5-K8 on flat packs that stress K7/K8's runs and buckets and K5's
+    warp runs (see ``onehot_adversary_arrays``), exact on dyadic data at
+    B = 1, 3 and 64; the one-hot cases leave K8 a partial column tile
+    (tiles of 7 columns at W = 1,152, of 2 at W = 3,200 and 4,096;
+    warp_run_edges at W = 512 takes four whole tiles of 16)."""
     from repro_torch.core import csrc
     from repro_torch.kernels import csrc_spmv_flat as fl
     from repro_torch.kernels.csrc_spmm import column_tile
@@ -878,6 +930,8 @@ def _flat_onehot_cases(seed, rng):
         ("flat_bucket_128_padding_step", "bucket_128", torch.float32,
          torch.int32, 8),
         ("flat_w4096_bf16_i16", "w4096", torch.bfloat16, torch.int16, 8),
+        ("flat_warp_run_edges_bf16_i16", "warp_run_edges", torch.bfloat16,
+         torch.int16, 8),
     ]
     report = []
     for name, case, vdt, idt, ks in cases:

@@ -12,13 +12,23 @@
 // window and the accumulator in shared memory (2*W*4 bytes, at most 32 KB):
 // the gather and the scatter-add never touch device memory.  The TPU grid
 // revisited one output block across its k-steps in order; here one block
-// owns a tile and loops over all of its slots, and the scatter is a
-// shared-memory atomicAdd, so the order of additions inside a window varies
-// from run to run (exact on dyadic data, rounding-level otherwise).
+// owns a tile and loops over all of its slots (window_kernels.cuh), four
+// consecutive slots per lane in one vector load of each stream.  The slots
+// are row-major, so a warp's 128 slots span a few rows: each lane sums its
+// slots by row, the warp sums the lanes' runs with shuffles (warp_scan.cuh),
+// and a run is added into the window once, where one shared atomicAdd per
+// slot serialized up to 32 lanes on one word.  The column half keeps one
+// atomicAdd per slot, each lane taking its four slots in a swizzled order so
+// that a long row's consecutive columns land in 32 different banks.  The
+// order of additions inside a window varies from run to run (exact on
+// dyadic data, rounding-level otherwise).
 //
 // The column sentinel (col == W) is clamped for the gather and skipped for
 // the scatter (an unguarded acc[W] would be out of bounds).  The row side of
-// a padded slot still adds 0*x to the tile's last row, as in the TPU body.
+// a padded slot still adds 0*x to the tile's last row, as in the TPU body:
+// the padding trails the tile, so that is one add per warp of padding.
+// S must be a multiple of 128 and the slot streams 16-byte aligned; the
+// wrapper checks both.
 #include "window_kernels.cuh"
 
 extern "C" int blockell_spmv_stream(const void* vals_l, const void* vals_u,

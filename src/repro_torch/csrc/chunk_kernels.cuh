@@ -23,50 +23,18 @@
 #pragma once
 
 #include "blockell_common.cuh"
+#include "warp_scan.cuh"   // WarpRuns, warp_runs, run_sum, kFullWarp
 
 namespace {
 
 constexpr int kChunkThreads = 128;   // S and r_pad are multiples of 128
 constexpr int kStage = 512;          // entries staged per pass (one-hot)
-constexpr unsigned kFullWarp = 0xffffffffu;
 
 __device__ __forceinline__ float gather_x(const float* __restrict__ x,
                                           int g, int n, int nrhs, int j) {
   return static_cast<unsigned>(g) < static_cast<unsigned>(n)
              ? x[static_cast<size_t>(g) * nrhs + j]
              : 0.0f;
-}
-
-// Runs of equal keys in a warp whose keys never decrease along the lanes.
-// Bit i of `add` says: at scan step 2^i, the lane 2^i below holds the same
-// key; `tail` marks the last lane of each run.
-struct WarpRuns {
-  unsigned add;
-  bool tail;
-};
-
-__device__ __forceinline__ WarpRuns warp_runs(int key) {
-  const int lane = threadIdx.x & 31;
-  unsigned add = 0;
-#pragma unroll
-  for (int i = 0; i < 5; ++i) {
-    const int d = 1 << i;
-    const int below = __shfl_up_sync(kFullWarp, key, d);
-    if (lane >= d && below == key) add |= 1u << i;
-  }
-  const int above = __shfl_down_sync(kFullWarp, key, 1);
-  return {add, lane == 31 || above != key};
-}
-
-// Inclusive scan of v inside each run (Hillis-Steele): on a run's tail lane
-// the result is the run's sum.  All 32 lanes must call it.
-__device__ __forceinline__ float run_sum(WarpRuns runs, float v) {
-#pragma unroll
-  for (int i = 0; i < 5; ++i) {
-    const float below = __shfl_up_sync(kFullWarp, v, 1 << i);
-    if ((runs.add >> i) & 1u) v += below;
-  }
-  return v;
 }
 
 // ---------------------------------------------------------------------------

@@ -12,19 +12,25 @@
 // `tile_of_step` / `first_of_tile` and validates (a tile's steps are
 // contiguous, every tile has at least one).  Inside a tile the body is K1's
 // (window_kernels.cuh): x window and accumulator in shared memory, one
-// coalesced read of every stream, shared-memory atomicAdd for the scatter,
-// the column sentinel clamped for the gather and skipped for the scatter, x
-// bounds-checked instead of padded, the diagonal added after the atomics.
-// The order of additions inside a window varies from run to run (exact on
-// dyadic data, rounding-level otherwise).
+// coalesced read of every stream (four consecutive slots per lane, 128 per
+// warp, in vector loads), the row half summed per run of equal rows by each
+// lane and then across the warp (warp_scan.cuh; a step's rows never
+// decrease and a warp never crosses a step) and added once per run, the
+// column half one shared-memory atomicAdd per slot in a swizzled slot order
+// (a wide row's consecutive columns in 32 banks), the column sentinel
+// clamped for the gather and skipped for the scatter, x bounds-checked
+// instead of padded, the diagonal added after the atomics.  The order of
+// additions inside a window varies from run to run (exact on dyadic data,
+// rounding-level otherwise).
 //
 // Bound on this card: bytes.  Per slot it reads 8-16 bytes and does four
-// flops.  What holds it back on skewed matrices: the slots of one row are
-// neighbours in the stream, so on a row of a wide band all 32 lanes of a
-// warp add into one shared word and the row-side atomics serialize; and the
-// tiles of the wide band carry many steps each while the rest carry one, so
-// the heavy blocks finish last.  A warp-segmented row sum and splitting heavy
-// tiles across blocks are the known cures, left to a later change.
+// flops.  On skewed matrices the slots of a wide-band row are neighbours in
+// the stream: with one add per slot all 32 lanes of a warp serialized on
+// one shared word; with the run sums a warp adds about once per row.  The
+// tiles of the wide band carry many steps each while the rest carry one.
+// They are the first blocks launched and fit the card at once (about 7.5
+// per SM against 8 resident), so they run side by side, not as a tail
+// after the light ones: one block per tile stays (measured: PERF.md).
 #include "window_kernels.cuh"
 
 extern "C" int flat_spmv_stream(const void* vals_l, const void* vals_u,

@@ -12,10 +12,14 @@
 //              sparse one a single step (no padding to the densest tile)
 //
 // One block owns one tile and loops over its slots; each .cu file holds the
-// C entry point of one kernel and its design notes.
+// C entry point of one kernel and its design notes.  The SpMV body (K1, K5)
+// sums a warp's slots by row, so it needs the row order that
+// blockell.check_slot_order checks wherever a pack is built, loaded or
+// converted: rows never decrease inside a tile or a k-step.
 #pragma once
 
 #include "blockell_common.cuh"
+#include "warp_scan.cuh"
 
 namespace {
 
@@ -44,8 +48,63 @@ struct FlatTiles {
 };
 
 // ---------------------------------------------------------------------------
-// Streaming SpMV: gather + shared-memory atomic scatter (K1, K5)
+// Streaming SpMV: gather, row runs summed per lane and warp, shared adds
+// (K1, K5)
 // ---------------------------------------------------------------------------
+//
+// A lane takes kLaneSlots consecutive slots per pass (one 16-byte load of
+// each 32-bit stream, 8 bytes of a 16-bit one), a warp 128, a block 1,024.
+// Rows never decrease inside a tile (rectangular) or a k-step (flat) —
+// checked wherever a pack is built, loaded or converted
+// (blockell.check_slot_order) — and a tile's slot count and the step are
+// multiples of 128 (checked by the wrappers), so every warp is whole or
+// idle and its 128 slots never cross a step.  Row half al*x[col]: a lane
+// sums its slots' products by row in slot order; a run that ends inside the
+// lane is added into the window at once, and the lane's last run goes
+// through the warp's segmented scan keyed by its row (warp_scan.cuh), whose
+// last lane adds the sum.  So a row gets one shared add per warp piece and
+// at most one more, where one add per slot put all 32 lanes of a warp on
+// one word on a long row.  Column half au*x[row]: one add per slot, a row's
+// columns are distinct.  On a long row they are consecutive, so in slot
+// order lanes L, L+8, L+16 and L+24 would add into one bank at once; lane
+// L takes its four slots in the order j ^ ((L >> 3) & 3) instead, which
+// puts the 32 adds in 32 banks.  A slot whose row lies outside [0, W) (no
+// checked pack holds one) adds nothing.
+
+constexpr int kLaneSlots = 4;
+
+// Slots [i, i + 4) of a stream, i a multiple of 4, widened to 32 bits.
+__device__ __forceinline__ void load4(const float* p, size_t i, float (&v)[4]) {
+  const float4 q = *reinterpret_cast<const float4*>(p + i);
+  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+}
+
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, size_t i,
+                                      float (&v)[4]) {
+  const uint2 q = *reinterpret_cast<const uint2*>(p + i);
+  const float2 lo = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&q.x));
+  const float2 hi = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&q.y));
+  v[0] = lo.x; v[1] = lo.y; v[2] = hi.x; v[3] = hi.y;
+}
+
+__device__ __forceinline__ void load4(const int* p, size_t i, int (&v)[4]) {
+  const int4 q = *reinterpret_cast<const int4*>(p + i);
+  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+}
+
+__device__ __forceinline__ void load4(const short* p, size_t i, int (&v)[4]) {
+  const short4 q = *reinterpret_cast<const short4*>(p + i);
+  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+}
+
+// Element i of four registers; i differs between lanes, so this is a
+// chain of selects rather than an indexed (local-memory) array.
+template <typename T>
+__device__ __forceinline__ T pick(const T (&a)[4], int i) {
+  return i == 0 ? a[0] : i == 1 ? a[1] : i == 2 ? a[2] : a[3];
+}
 
 template <typename V, typename I, typename Tiles>
 __global__ void __launch_bounds__(kThreads)
@@ -68,18 +127,47 @@ spmv_stream_kernel(const V* __restrict__ vals_l, const V* __restrict__ vals_u,
   __syncthreads();
 
   const TileSlots ts = tiles(b);
-  const size_t base = ts.base;
-  for (int p = tid; p < ts.count; p += kThreads) {
-    const int c = load_index(col, base + p);
-    const int r = load_index(row, base + p);
-    if (static_cast<unsigned>(r) >= static_cast<unsigned>(w_pad)) continue;
-    const float vl = load_value(vals_l, base + p);
-    const int cg = min(max(c, 0), w_pad - 1);
-    atomicAdd(&acc[r], vl * xw[cg]);
-    if (static_cast<unsigned>(c) < static_cast<unsigned>(w_pad)) {
-      const float vu = num_sym ? vl : load_value(vals_u, base + p);
-      atomicAdd(&acc[c], vu * xw[r]);
+  const int swizzle = (tid >> 3) & 3;
+  for (int q = tid * kLaneSlots; q < ts.count; q += kThreads * kLaneSlots) {
+    const size_t at = ts.base + q;
+    int cs[kLaneSlots], rs[kLaneSlots];
+    float ls[kLaneSlots], us[kLaneSlots];
+    load4(col, at, cs);
+    load4(row, at, rs);
+    load4(vals_l, at, ls);
+    if (num_sym) {
+#pragma unroll
+      for (int i = 0; i < kLaneSlots; ++i) us[i] = ls[i];
+    } else {
+      load4(vals_u, at, us);
     }
+    int key = -1;        // the row of the run being summed, -1 for none
+    float run = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kLaneSlots; ++i) {
+      const int k =
+          static_cast<unsigned>(rs[i]) < static_cast<unsigned>(w_pad) ? rs[i]
+                                                                      : -1;
+      if (k != key) {    // the run of `key` ends inside the lane
+        if (key >= 0) atomicAdd(&acc[key], run);
+        key = k;
+        run = 0.0f;
+      }
+      run += ls[i] * xw[min(max(cs[i], 0), w_pad - 1)];
+    }
+#pragma unroll
+    for (int j = 0; j < kLaneSlots; ++j) {
+      const int i = j ^ swizzle;
+      const int r = pick(rs, i);
+      const int c = pick(cs, i);
+      if (static_cast<unsigned>(r) < static_cast<unsigned>(w_pad) &&
+          static_cast<unsigned>(c) < static_cast<unsigned>(w_pad)) {
+        atomicAdd(&acc[c], pick(us, i) * xw[r]);
+      }
+    }
+    const WarpRuns runs = warp_runs(key);
+    const float sum = run_sum(runs, run);
+    if (key >= 0 && runs.tail) atomicAdd(&acc[key], sum);
   }
   __syncthreads();
 

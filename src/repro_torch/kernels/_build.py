@@ -39,8 +39,8 @@ CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-_HEADERS = ("blockell_common.cuh", "window_kernels.cuh", "window_runs.cuh",
-            "chunk_kernels.cuh", "assembly_common.cuh")
+_HEADERS = ("blockell_common.cuh", "warp_scan.cuh", "window_kernels.cuh",
+            "window_runs.cuh", "chunk_kernels.cuh", "assembly_common.cuh")
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 _lock = threading.Lock()
@@ -176,6 +176,21 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
+
+
+def check_lane_loads(pack, tile_slots: int) -> None:
+    """Raise ValueError unless the stream SpMVs (K1, K5) can read ``pack``:
+    a lane loads four consecutive slots of each slot stream at once (16
+    bytes of a 32-bit stream, 8 of a 16-bit one) and a warp 128 slots, so
+    a tile's slot count or the k-step (``tile_slots``) must be a multiple
+    of 128 and every slot stream must start on a 16-byte boundary."""
+    if tile_slots % 128:
+        raise ValueError(f"{tile_slots} slots per tile or k-step: the "
+                         "stream SpMV needs a multiple of 128")
+    for name in ("vals_l", "vals_u", "col_local", "row_in_win"):
+        if getattr(pack, name).data_ptr() % 16:
+            raise ValueError(f"pack.{name} must start on a 16-byte boundary "
+                             "for the stream SpMV's vector loads")
 
 
 def stream_flags(pack, slots_shape: tuple) -> tuple:

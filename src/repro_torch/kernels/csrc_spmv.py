@@ -12,7 +12,12 @@ Two kernels compute the (NT, W) windows, selected by ``variant``:
   'stream'  K1, csrc/blockell_spmv_stream.cu — replaces the TPU body
             kernels/csrc_spmv.py::_kernel_stream of the JAX package.
             Bound by bytes on the card; one block per tile, x window and
-            accumulator in shared memory, shared-memory atomic adds.
+            accumulator in shared memory.  Each lane sums its four
+            consecutive slots by row, the warp sums the lanes' runs of
+            equal rows with shuffles (csrc/warp_scan.cuh), and a run is
+            added once into the window; the column half takes one
+            shared-memory atomic add per slot.  Needs the slot order that
+            ``blockell.check_slot_order`` checks, as K3 does.
   'onehot'  K3, csrc/blockell_spmv_onehot.cu — replaces
             kernels/csrc_spmv.py::_kernel.  One block per tile over the
             tile's k-steps, the run-and-bucket body of csrc/window_runs.cuh:
@@ -161,8 +166,13 @@ def _kernel_operands(pack: BlockEll, x: torch.Tensor, ndim: int):
 
 
 def spmv_windows_stream_cuda(pack: BlockEll, x: torch.Tensor) -> torch.Tensor:
-    """Launch K1; returns the (NT, W) windows."""
+    """Launch K1; returns the (NT, W) windows.  The pack's rows must not
+    decrease inside a tile (``blockell.check_slot_order``, run where the
+    pack was built, loaded or converted): K1 sums runs of equal rows per
+    lane and warp before adding them.  S must be a multiple of 128 and the
+    slot streams 16-byte aligned (``_build.check_lane_loads``)."""
     x, pointers, flags = _kernel_operands(pack, x, ndim=1)
+    _build.check_lane_loads(pack, pack.s)
     out = torch.empty((pack.nt, pack.w_pad), dtype=torch.float32,
                       device=x.device)
     with torch.cuda.device(x.device):

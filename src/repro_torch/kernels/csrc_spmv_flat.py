@@ -24,7 +24,12 @@ Kernels, selected by ``variant``:
             csrc/flat_spmm_stream.cu — replace the TPU bodies
             kernels/csrc_spmv_flat.py::_kernel_stream / _kernel_mm_stream.
             Bound by bytes; one block per tile over the tile's steps,
-            shared-memory window and atomics.
+            shared-memory window.  K5 sums each run of equal rows per lane
+            (four consecutive slots) and per warp (shuffles,
+            csrc/warp_scan.cuh) and adds it once, the column half one
+            atomic add per slot; K6 adds every (slot, column) item with
+            its own atomic.  K5 needs the slot order checked below, as
+            K7/K8 do.
   'onehot'  K7, csrc/flat_spmv_onehot.cu, and K8, csrc/flat_spmm_onehot.cu
             — replace ::_kernel / ::_kernel_mm.  One block per tile (and
             column tile) over the tile's steps, the body of
@@ -382,8 +387,13 @@ def _launch_operands(pack: FlatBlockEll, x: torch.Tensor, ndim: int):
 
 
 def flat_spmv_stream_cuda(pack: FlatBlockEll, x: torch.Tensor) -> torch.Tensor:
-    """Launch K5; returns the (NT, W) windows."""
+    """Launch K5; returns the (NT, W) windows.  The pack's rows must not
+    decrease inside a k-step (checked with the step ranges where the pack
+    was built, loaded or converted): K5 sums runs of equal rows per lane
+    and warp before adding them.  The slot streams must be 16-byte aligned
+    (``_build.check_lane_loads``)."""
     x, pointers, flags = _launch_operands(pack, x, ndim=1)
+    _build.check_lane_loads(pack, pack.step)
     out = torch.empty((pack.nt, pack.w_pad), dtype=torch.float32,
                       device=x.device)
     with torch.cuda.device(x.device):

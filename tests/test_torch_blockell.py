@@ -86,13 +86,15 @@ def test_padding_bytes_count_the_layout_not_the_product(name, dt, grid):
 @pytest.mark.parametrize("grid,case,ks", [
     ("rect", "row_spans_steps", 1), ("rect", "bucket_128", 8),
     ("rect", "padding_only_steps", 8), ("rect", "w4096", 8),
+    ("rect", "warp_run_edges", 8),
     ("flat", "row_spans_steps", 1), ("flat", "bucket_128", 8),
-    ("flat", "w4096", 8)])
+    ("flat", "w4096", 8), ("flat", "warp_run_edges", 8)])
 def test_onehot_adversary_packs_have_their_features(grid, case, ks):
     """``chip_smoke.py``'s adversary matrices for the one-hot kernels
-    (K3/K4 rectangular, K7/K8 flat; shared with the card tests) give packs
-    with the feature each case aims at, in the slot order the kernels need
-    (``check_slot_order`` passed where they were built)."""
+    (K3/K4 rectangular, K7/K8 flat) and the stream SpMVs' warp runs (K1,
+    K5; shared with the card tests) give packs with the feature each case
+    aims at, in the slot order the kernels need (``check_slot_order``
+    passed where they were built)."""
     sm = chip_smoke()
     arrays = sm.onehot_adversary_arrays(case, seed=0)
     M = tcsrc.from_assembly(arrays[0].shape[0] - 1, *arrays)

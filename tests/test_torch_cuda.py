@@ -147,63 +147,149 @@ def test_flat_plan_on_the_card_launches_kernels_and_matches_segment(card):
 
 
 def _adversary(case):
-    """The adversary matrix of ``case`` (``w4096_bf16_i16``: the ``w4096``
-    matrix, packed with bfloat16 values and int16 indices), its k-step's
-    sublanes and the pack's dtype arguments."""
-    gen = "w4096" if case == "w4096_bf16_i16" else case
+    """The adversary matrix of ``case`` (a ``_bf16_i16`` suffix: the same
+    matrix packed with bfloat16 values and int16 indices), its generator
+    case, its k-step's sublanes and the pack's dtype arguments."""
+    gen = case.removesuffix("_bf16_i16")
     arrays = chip_smoke().onehot_adversary_arrays(gen, seed=0)
     M = csrc.from_assembly(arrays[0].shape[0] - 1, *arrays)
-    ks = 1 if case == "row_spans_steps" else 8
+    ks = 1 if gen == "row_spans_steps" else 8
     kw = (dict(dtype=torch.bfloat16, index_dtype=torch.int16)
-          if case == "w4096_bf16_i16" else {})
-    return M, ks, kw
+          if case != gen else {})
+    return M, gen, ks, kw
 
 
-def _assert_has_feature(case, pack, step):
+def _assert_has_feature(gen, pack, step):
     sm = chip_smoke()
     geometry = sm.onehot_step_geometry(pack, step)
-    assert sm.onehot_case_holds(case, geometry), geometry
+    assert sm.onehot_case_holds(gen, geometry), geometry
+
+
+def _dyadic_x(rng, n, nrhs, card):
+    shape = (n,) if nrhs == 1 else (n, nrhs)
+    return torch.from_numpy((rng.integers(-8, 9, shape) / 8
+                             ).astype(np.float32)).to(card)
 
 
 @pytest.mark.parametrize("case", ["row_spans_steps", "bucket_128",
-                                  "w4096_bf16_i16"])
+                                  "w4096_bf16_i16", "warp_run_edges"])
 def test_onehot_flat_kernels_equal_plain_on_adversarial_packs(card, case):
     """K7/K8 against their plain version, exactly on dyadic data, at B = 1,
     3 and 64 (partial column tiles), and two runs bit for bit."""
-    M, ks, kw = _adversary(case)
+    M, gen, ks, kw = _adversary(case)
     pack = fl.pack_flat(M, ks=ks, **kw).to(card)
-    _assert_has_feature(case, pack, pack.step)
+    _assert_has_feature(gen, pack, pack.step)
     rng = np.random.default_rng(3)
     for nrhs, kernel in ((1, fl.flat_spmv_onehot_cuda),
                          (3, fl.flat_spmm_onehot_cuda),
                          (64, fl.flat_spmm_onehot_cuda)):
-        shape = (M.n,) if nrhs == 1 else (M.n, nrhs)
-        x = torch.from_numpy((rng.integers(-8, 9, shape) / 8
-                              ).astype(np.float32)).to(card)
+        x = _dyadic_x(rng, M.n, nrhs, card)
         got = kernel(pack, x)
         assert torch.equal(got, fl.flat_windows_onehot_plain(pack, x))
         assert torch.equal(got, kernel(pack, x))
 
 
 @pytest.mark.parametrize("case", ["row_spans_steps", "bucket_128",
-                                  "padding_only_steps", "w4096_bf16_i16"])
+                                  "padding_only_steps", "w4096_bf16_i16",
+                                  "warp_run_edges"])
 def test_onehot_rect_kernels_equal_plain_on_adversarial_packs(card, case):
     """K3/K4 on the rectangular grid against their plain version, exactly on
     dyadic data, K3 at B = 1 and K4 at B = 3 and 64 (a partial column
     tile), and two runs bit for bit."""
-    M, ks, kw = _adversary(case)
+    M, gen, ks, kw = _adversary(case)
     pack = blockell.pack(M, k_step=ks * 128, **kw).to(card)
-    _assert_has_feature(case, pack, ks * 128)
+    _assert_has_feature(gen, pack, ks * 128)
     rng = np.random.default_rng(5)
     for nrhs, kernel in ((1, mv.spmv_windows_onehot_cuda),
                          (3, mm.spmm_windows_onehot_cuda),
                          (64, mm.spmm_windows_onehot_cuda)):
-        shape = (M.n,) if nrhs == 1 else (M.n, nrhs)
-        x = torch.from_numpy((rng.integers(-8, 9, shape) / 8
-                              ).astype(np.float32)).to(card)
+        x = _dyadic_x(rng, M.n, nrhs, card)
         got = kernel(pack, x, ks * 128)
         assert torch.equal(got, mv.windows_onehot_plain(pack, x, ks * 128))
         assert torch.equal(got, kernel(pack, x, ks * 128))
+
+
+@pytest.mark.parametrize("grid,case", [
+    ("rect", "row_spans_steps"), ("rect", "bucket_128"),
+    ("rect", "padding_only_steps"), ("rect", "w4096_bf16_i16"),
+    ("rect", "warp_run_edges"), ("rect", "warp_run_edges_bf16_i16"),
+    ("flat", "row_spans_steps"), ("flat", "bucket_128"),
+    ("flat", "w4096_bf16_i16"), ("flat", "warp_run_edges"),
+    ("flat", "warp_run_edges_bf16_i16")])
+def test_stream_spmv_kernels_equal_plain_on_adversarial_packs(card, grid,
+                                                              case):
+    """K1 (rectangular) and K5 (flat), whose lanes and warps sum runs of
+    equal rows, against their plain versions on the adversary packs,
+    exactly on dyadic data: runs ending at every position of a warp, four
+    rows in a lane, runs filling one warp or several and crossing 256-slot
+    strides and step ends (``warp_run_edges``), runs over whole steps,
+    padding-only steps, W = 4096.  Stream kernels add in atomic order, so
+    two runs are not compared bit for bit."""
+    M, gen, ks, kw = _adversary(case)
+    if grid == "rect":
+        pack = blockell.pack(M, k_step=ks * 128, **kw).to(card)
+        step, kernel, plain = (ks * 128, mv.spmv_windows_stream_cuda,
+                               mv.spmv_windows_stream_plain)
+    else:
+        pack = fl.pack_flat(M, ks=ks, **kw).to(card)
+        step, kernel, plain = (pack.step, fl.flat_spmv_stream_cuda,
+                               fl.flat_windows_stream_plain)
+    _assert_has_feature(gen, pack, step)
+    rng = np.random.default_rng(7)
+    for _ in range(2):
+        x = _dyadic_x(rng, M.n, 1, card)
+        assert torch.equal(kernel(pack, x), plain(pack, x))
+
+
+@pytest.mark.parametrize("grid", ["rect", "flat"])
+def test_stream_spmv_wrappers_refuse_misaligned_streams(card, grid):
+    """K1/K5 read four slots per lane in one vector load: a slot stream that
+    does not start on a 16-byte boundary raises ValueError in the wrapper,
+    and nothing is launched."""
+    import dataclasses
+    M = _dyadic_skewed()
+    if grid == "rect":
+        pack = blockell.pack(M).to(card)
+        kernel, name = mv.spmv_windows_stream_cuda, "blockell_spmv_stream"
+    else:
+        pack = fl.pack_flat(M).to(card)
+        kernel, name = fl.flat_spmv_stream_cuda, "flat_spmv_stream"
+    rows = torch.empty(pack.row_in_win.numel() + 1, dtype=torch.int32,
+                       device=card)[1:]
+    rows.copy_(pack.row_in_win.reshape(-1))
+    bad = dataclasses.replace(pack, row_in_win=rows.view(
+        pack.row_in_win.shape))
+    x = torch.ones(M.n, device=card)
+    before = _build.launch_counts()[name]
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        kernel(bad, x)
+    assert _build.launch_counts()[name] == before
+
+
+@pytest.mark.parametrize("grid", ["rect", "flat"])
+def test_stream_spmv_kernels_within_rowsum_tolerance_on_general_values(
+        card, grid):
+    """K1 / K5 on standard-normal values and x at a mid shape (a band of 24
+    at fill 0.6; a skewed matrix with a 512-wide band on 6 % of its rows):
+    within 1e-5 of the row's absolute sum of their plain versions."""
+    import dataclasses
+    n = 40000
+    if grid == "rect":
+        M = csrc.fem_band(n, 24, seed=11, numeric_symmetric=False)
+        pack = blockell.pack(M).to(card)
+        kernel, plain = (mv.spmv_windows_stream_cuda,
+                         mv.spmv_windows_stream_plain)
+    else:
+        M = csrc.skewed_band(n, 512, 3, seed=11, numeric_symmetric=False)
+        pack = fl.pack_flat(M).to(card)
+        kernel, plain = (fl.flat_spmv_stream_cuda,
+                         fl.flat_windows_stream_plain)
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        n).astype(np.float32)).to(card)
+    apack = dataclasses.replace(pack, vals_l=pack.vals_l.abs(),
+                                vals_u=pack.vals_u.abs(), ad=pack.ad.abs())
+    bound = 1e-5 * plain(apack, x.abs())
+    assert bool(((kernel(pack, x) - plain(pack, x)).abs() <= bound).all())
 
 
 def _dyadic_powerlaw(n=3000, seed=0, symmetric=True):

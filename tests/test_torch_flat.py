@@ -38,6 +38,7 @@ from repro_torch.kernels import csrc_spmv_stream as tstream
 from repro_torch.kernels import ops as tops
 from repro_torch.serve import SpmvServingEngine
 
+from _smoke import chip_smoke
 from test_torch_parity_helpers import (MATRICES, dyadic, dyadic_x,
                                        empty_rows, np32, to_torch_csrc)
 
@@ -184,10 +185,12 @@ def test_malformed_step_maps_raise_before_any_launch():
 @pytest.mark.parametrize("source", ["pack_flat", "load_npz",
                                     "flat_from_arrays", "one_step_shuffled"])
 def test_rows_never_decrease_inside_a_step(source, tmp_path):
-    """K7/K8 find a window row's slots as one run of the staged k-step: every
-    pack built, loaded from a reference-written npz or converted keeps its
-    rows non-decreasing inside each step, and a pack with one step's rows
-    shuffled raises ValueError when it is constructed, before any launch."""
+    """K7/K8 find a window row's slots as one run of the staged k-step, and
+    K5's warps sum runs of equal rows: every pack built, loaded from a
+    reference-written npz or converted (one pack for either variant) keeps
+    its rows non-decreasing inside each step, and a pack with one step's
+    rows shuffled raises ValueError when it is constructed, before any
+    launch."""
     if source == "pack_flat":
         packs = [tflat.pack_flat(to_torch_csrc(FLAT_MATRICES[name]()), tm=tm,
                                  ks=ks, dtype=DTYPES[d][2],
@@ -286,6 +289,27 @@ def test_flat_spmv_bit_identical(name, tm, ks, variant):
         yt.numpy(), (A @ x.astype(np.float64)).astype(np.float32))
     wins = tflat.flat_spmv_windows(pt, torch.from_numpy(x), variant=variant)
     assert wins.shape == (pt.nt, pt.w_pad)
+
+
+@pytest.mark.parametrize("variant", ["onehot", "stream"])
+def test_flat_spmv_bit_identical_on_warp_run_edges(variant):
+    """K5 / K7 plain versions through ``flat_spmv`` on the matrix of
+    ``chip_smoke.py``'s ``warp_run_edges`` (row widths cycling over 1, 1,
+    1..33, 64, 128 and 300: on the card K5's warps see runs end at every
+    position, and runs cross step ends): the Pallas body's product and the
+    dense one."""
+    arrays = chip_smoke().onehot_adversary_arrays("warp_run_edges", seed=0)
+    n = arrays[0].shape[0] - 1
+    Mj = jcsrc.from_assembly(n, *arrays)
+    pj = jflat.pack_flat(Mj, ks=8)
+    pt = tflat.pack_flat(to_torch_csrc(Mj), ks=8)
+    x = dyadic_x(n, 1, seed=4)
+    yj = jflat.flat_spmv(pj, jnp.asarray(x), interpret=True, variant=variant)
+    yt = tflat.flat_spmv(pt, torch.from_numpy(x), variant=variant)
+    np.testing.assert_array_equal(np.asarray(yj), yt.numpy())
+    A = jcsrc.to_dense(Mj).astype(np.float64)
+    np.testing.assert_array_equal(
+        yt.numpy(), (A @ x.astype(np.float64)).astype(np.float32))
 
 
 @pytest.mark.parametrize("nrhs", [1, 3, 8])

@@ -23,6 +23,7 @@ from repro_torch.kernels import csrc_spmm as tmm
 from repro_torch.kernels import csrc_spmv as tmv
 from repro_torch.kernels import csrc_spmv_stream as tstream
 
+from _smoke import chip_smoke
 from test_torch_parity_helpers import (MATRICES, dyadic, dyadic_x,
                                        to_torch_csrc)
 
@@ -142,12 +143,57 @@ def test_general_values_within_rowsum_tolerance(variant):
     assert (np.abs(yj - yt) <= bound).all()
 
 
+@pytest.mark.parametrize("variant", ["onehot", "stream"])
+def test_windows_bit_identical_on_warp_run_edges(variant):
+    """K1 / K3 plain versions against the Pallas bodies on the matrix of
+    ``chip_smoke.py``'s ``warp_run_edges`` (row widths cycling over 1, 1,
+    1..33, 64, 128 and 300: the card's K1 warps see runs end at every
+    position): the (NT, W) windows and the product, bit for bit on dyadic
+    data."""
+    arrays = chip_smoke().onehot_adversary_arrays("warp_run_edges", seed=0)
+    n = arrays[0].shape[0] - 1
+    Mj = jcsrc.from_assembly(n, *arrays)
+    pj = jbe.pack(Mj, k_step=8 * 128)
+    pt = tbe.pack(to_torch_csrc(Mj), k_step=8 * 128)
+    x = dyadic_x(n, 1, seed=4)
+    wj = jmv.blockell_spmv_windows(pj, jnp.asarray(x), k_step_sublanes=8,
+                                   interpret=True, variant=variant)
+    wt = tmv.blockell_spmv_windows(pt, torch.from_numpy(x),
+                                   k_step_sublanes=8, variant=variant)
+    np.testing.assert_array_equal(np.asarray(wj), wt.numpy())
+    A = jcsrc.to_dense(Mj).astype(np.float64)
+    yt = tmv.blockell_spmv(pt, torch.from_numpy(x), k_step_sublanes=8,
+                           variant=variant)
+    np.testing.assert_array_equal(
+        yt.numpy(), (A @ x.astype(np.float64)).astype(np.float32))
+
+
 def test_onehot_plain_chunking_does_not_change_result(monkeypatch):
     Mj, pj, pt = _packs("fem_band", 32)
     x = torch.from_numpy(dyadic_x(Mj.n, 3, seed=2))
     whole = tmm.spmm_windows_onehot_plain(pt, x, KS * 128)
     monkeypatch.setattr(tmv, "_MASK_ELEMENTS", 1)     # one tile per chunk
     assert torch.equal(whole, tmm.spmm_windows_onehot_plain(pt, x, KS * 128))
+
+
+def test_stream_spmv_lane_loads_need_whole_warps_and_aligned_streams():
+    """K1/K5 load four consecutive slots per lane and 128 per warp:
+    ``_build.check_lane_loads`` passes every packer's output and refuses a
+    slot count that is not a multiple of 128 and a slot stream that does
+    not start on a 16-byte boundary, before a launch could fault."""
+    import dataclasses
+    from repro_torch.kernels import csrc_spmv_flat as tfl
+    _, _, pt = _packs("fem_band", 32)
+    _build.check_lane_loads(pt, pt.s)
+    pf = tfl.pack_flat(to_torch_csrc(MATRICES["fem_band"]()), tm=32, ks=1)
+    _build.check_lane_loads(pf, pf.step)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        _build.check_lane_loads(pt, 192)
+    shifted = torch.empty(pt.col_local.numel() + 1, dtype=torch.int32)[1:]
+    shifted.copy_(pt.col_local.reshape(-1))
+    bad = dataclasses.replace(pt, col_local=shifted.view(pt.nt, pt.s))
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        _build.check_lane_loads(bad, bad.s)
 
 
 def test_wrappers_validate_and_never_launch_on_cpu():
@@ -178,10 +224,16 @@ def test_wrappers_validate_and_never_launch_on_cpu():
 
 def test_kernel_sources_and_notes_exist():
     """Every registered kernel has its CUDA source in the package and names
-    the TPU body it replaces as ``file:line``."""
+    the TPU body it replaces as ``file:line``; every header beside the
+    sources is in ``_build._HEADERS``, so an edit to it rebuilds every
+    kernel."""
     import os
     import re
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    headers = sorted(f for f in os.listdir(_build.CSRC_DIR)
+                     if f.endswith(".cuh"))
+    assert headers == sorted(_build._HEADERS)
+    assert "warp_scan.cuh" in headers
     for k in _build.KERNELS.values():
         assert os.path.isfile(k.source), k.source
         src = open(k.source).read()

@@ -341,7 +341,9 @@ def _malformed(pj, defect):
 def test_malformed_tile_raises_before_any_launch(source, defect, tmp_path):
     """A pack with one tile's rows shuffled, or a padding slot before a real
     one, raises ValueError where it is converted or loaded — on the CPU,
-    before a kernel could take it."""
+    before a kernel could take it.  The pack does not depend on the
+    variant, so this guards K1 (whose warps sum runs of equal rows) as it
+    guards K3/K4."""
     f = str(tmp_path / "kernel.npz")
     pj = _reference_kernel_npz(f, 32, 2, "float32", "int32").pack
     arrays = _malformed(pj, defect)
