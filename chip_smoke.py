@@ -859,7 +859,7 @@ def phase_kernels(seed: int):
          "row's absolute sum", cases=report)
 
 
-def _exact_runs(name, runners, n, rng, widths=(1, 3, 64)):
+def _exact_runs(name, runners, n, rng, widths=(1, 3, 11, 64)):
     """Every runner against its plain version on dyadic x at ``widths``,
     exactly; returns the errors by kernel and width."""
     errs = {}
@@ -876,10 +876,11 @@ def _exact_runs(name, runners, n, rng, widths=(1, 3, 64)):
 
 def _rect_onehot_cases(seed, rng):
     """K1-K4 on rectangular packs that stress K3/K4's runs and buckets and
-    K1's warp runs (see ``onehot_adversary_arrays``), exact on dyadic data
-    at B = 1, 3 and 64; the one-hot cases leave K4 a partial column tile
-    (tiles of 7 columns at W = 1,152, of 2 at W = 3,200 and 4,096, of 21 at
-    W = 384; warp_run_edges at W = 512 takes four whole tiles of 16)."""
+    K1/K2's warp runs (see ``onehot_adversary_arrays``), exact on dyadic
+    data at B = 1, 3, 11 and 64; the cases leave K2/K4 partial column
+    tiles (tiles of 7 columns at W = 1,152, of 2 at W = 3,200 and 4,096,
+    of 21 at W = 384; warp_run_edges at W = 512 takes four whole tiles of
+    16)."""
     from repro_torch.core import blockell, csrc
     from repro_torch.kernels.csrc_spmm import column_tile
     cases = [
@@ -915,9 +916,9 @@ def _rect_onehot_cases(seed, rng):
 
 
 def _flat_onehot_cases(seed, rng):
-    """K5-K8 on flat packs that stress K7/K8's runs and buckets and K5's
+    """K5-K8 on flat packs that stress K7/K8's runs and buckets and K5/K6's
     warp runs (see ``onehot_adversary_arrays``), exact on dyadic data at
-    B = 1, 3 and 64; the one-hot cases leave K8 a partial column tile
+    B = 1, 3, 11 and 64; the cases leave K6/K8 partial column tiles
     (tiles of 7 columns at W = 1,152, of 2 at W = 3,200 and 4,096;
     warp_run_edges at W = 512 takes four whole tiles of 16)."""
     from repro_torch.core import csrc

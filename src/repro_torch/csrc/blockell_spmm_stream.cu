@@ -9,12 +9,16 @@
 // B columns, so x and the windows dominate as B grows; both stay in shared
 // memory while a tile is processed.  (W, B) float32 twice passes a block's
 // shared memory already at W=4096, B=8, so the B axis is cut into column
-// tiles of BT columns (grid.y) sized to a 64 KB budget, which keeps several
-// blocks resident per SM; a tile's slots are re-read once per column tile.
-// Work items are (slot, column) pairs with the column fastest, so a warp
-// reads neighbouring shared-memory words and one slot's indices by
-// broadcast.  The scatter is a shared-memory atomicAdd: the order of
-// additions varies from run to run (exact on dyadic data).
+// tiles of BT columns (grid.y) sized to a 64 KB budget; a tile's slots are
+// re-read once per column tile.  The body (window_kernels.cuh) is K1's with
+// a loop over the tile's columns: a lane reads four consecutive slots once
+// per pass, the warp's runs of equal rows are found once per pass, and per
+// column the row half is summed per lane and across the warp before one
+// shared add per run piece, the column half one shared add per slot in a
+// swizzled slot order (32 banks on a long row at the windows' odd row
+// stride).  Rows never decrease inside a tile (blockell.check_slot_order)
+// and the streams are 16-byte aligned (_build.check_lane_loads).  The
+// order of additions varies from run to run (exact on dyadic data).
 //
 // Sentinel handling as in K1: column sentinel clamped for the gather and
 // skipped for the scatter; the row side of a padded slot adds 0*x.

@@ -40,20 +40,46 @@ __device__ __forceinline__ float gather_x(const float* __restrict__ x,
 // ---------------------------------------------------------------------------
 // Streaming: warp-segmented sums by lrow into a shared-memory row (K9, K10)
 // ---------------------------------------------------------------------------
+//
+// A thread loads one entry's value, lrow and src per step of 32 entries a
+// warp; the warp's runs of equal lrow (warp_runs) are found once per step
+// and every column's products go through the segmented scan (run_sum), the
+// run's tail lane adding the sum into the (r_pad, cols) accumulator.
+//
+// How x arrives differs.  K9 (kStaged false, one column) gathers x[src]
+// directly, one 4-byte load per lane.  K10 (kStaged true) first copies the
+// warp's 32 X rows into a per-warp (32, ld) buffer in shared memory, ld =
+// cols | 1: the lanes walk the (entry, column) pairs with the column
+// fastest, taking each entry's src from its lane by shuffle, so one load
+// instruction reads a few whole rows of X instead of one float from each of
+// 32 rows.  After __syncwarp lane e reads row e, conflict-free at an odd
+// stride, and runs the same products and scan as the direct gather, so both
+// forms give the same sums.
 
-template <typename V, typename I>
+template <typename V, typename I, bool kStaged>
 __global__ void __launch_bounds__(kChunkThreads)
 chunk_stream_kernel(const V* __restrict__ vals, const I* __restrict__ lrow,
                     const I* __restrict__ src, const float* __restrict__ x,
                     float* __restrict__ out, int s, int r_pad, int n,
                     int nrhs, int bt) {
-  extern __shared__ float acc[];           // (r_pad, cols)
+  extern __shared__ float smem[];
+  float* acc = smem;                       // (r_pad, cols)
   const int c = blockIdx.x;
   const int j0 = blockIdx.y * bt;
   const int cols = min(bt, nrhs - j0);
   const int tid = threadIdx.x;
+  const int lane = tid & 31;
   const int items = r_pad * cols;
   for (int q = tid; q < items; q += kChunkThreads) acc[q] = 0.0f;
+  // K10: this warp's (32, ld) buffer, and the lane's first (entry, column)
+  // pair of a copy and the step of 32 pairs in entries and columns
+  const int ld = cols | 1;
+  float* buf = smem + static_cast<size_t>(r_pad) * bt +
+               static_cast<size_t>(tid >> 5) * 32 * (bt | 1);
+  const int e_first = lane / cols;
+  const int j_first = lane - e_first * cols;
+  const int de = 32 / cols;
+  const int dj = 32 - de * cols;
   __syncthreads();
 
   // s is a multiple of 128, so every warp is either whole or idle
@@ -65,9 +91,29 @@ chunk_stream_kernel(const V* __restrict__ vals, const I* __restrict__ lrow,
     const WarpRuns runs = warp_runs(key);
     const bool store =
         runs.tail && static_cast<unsigned>(key) < static_cast<unsigned>(r_pad);
-    for (int j = 0; j < cols; ++j) {
-      const float sum = run_sum(runs, v * gather_x(x, g, n, nrhs, j0 + j));
-      if (store) atomicAdd(&acc[key * cols + j], sum);
+    if constexpr (kStaged) {
+      __syncwarp();                       // the last step's reads are done
+      int se = e_first, sj = j_first;
+      for (int t = 0; t < cols; ++t) {    // 32 * cols pairs, cols per lane
+        const int gs = __shfl_sync(kFullWarp, g, se);
+        buf[se * ld + sj] = gather_x(x, gs, n, nrhs, j0 + sj);
+        se += de;
+        sj += dj;
+        if (sj >= cols) {
+          sj -= cols;
+          ++se;
+        }
+      }
+      __syncwarp();
+      for (int j = 0; j < cols; ++j) {
+        const float sum = run_sum(runs, v * buf[lane * ld + j]);
+        if (store) atomicAdd(&acc[key * cols + j], sum);
+      }
+    } else {
+      for (int j = 0; j < cols; ++j) {
+        const float sum = run_sum(runs, v * gather_x(x, g, n, nrhs, j0 + j));
+        if (store) atomicAdd(&acc[key * cols + j], sum);
+      }
     }
   }
   __syncthreads();
@@ -80,19 +126,24 @@ chunk_stream_kernel(const V* __restrict__ vals, const I* __restrict__ lrow,
   }
 }
 
-inline int launch_chunk_stream(const void* vals, const void* lrow,
-                               const void* src, const void* x, void* out,
-                               int num_chunks, int s, int r_pad, int n,
-                               int nrhs, int bt, int val_bf16, int idx_i16,
-                               void* stream) {
-  const size_t smem = static_cast<size_t>(r_pad) * bt * sizeof(float);
+template <bool kStaged>
+int launch_chunk_stream(const void* vals, const void* lrow, const void* src,
+                        const void* x, void* out, int num_chunks, int s,
+                        int r_pad, int n, int nrhs, int bt, int val_bf16,
+                        int idx_i16, void* stream) {
+  // the (r_pad, BT) accumulator and, for K10, one (32, BT | 1) buffer a warp
+  const size_t buffers =
+      kStaged ? static_cast<size_t>(kChunkThreads) * (bt | 1) : 0;
+  const size_t smem =
+      sizeof(float) * (static_cast<size_t>(r_pad) * bt + buffers);
   const dim3 grid(num_chunks, (nrhs + bt - 1) / bt);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define LAUNCH(V, I)                                                         \
   do {                                                                       \
-    cudaError_t e = allow_dynamic_smem(chunk_stream_kernel<V, I>, smem);     \
+    cudaError_t e =                                                          \
+        allow_dynamic_smem(chunk_stream_kernel<V, I, kStaged>, smem);        \
     if (e != cudaSuccess) return static_cast<int>(e);                        \
-    chunk_stream_kernel<V, I><<<grid, kChunkThreads, smem, st>>>(            \
+    chunk_stream_kernel<V, I, kStaged><<<grid, kChunkThreads, smem, st>>>(   \
         static_cast<const V*>(vals), static_cast<const I*>(lrow),            \
         static_cast<const I*>(src), static_cast<const float*>(x),            \
         static_cast<float*>(out), s, r_pad, n, nrhs, bt);                    \

@@ -7,18 +7,22 @@
 // diagonal joining once; (NT, W, B) out.
 //
 // One block owns one (row tile, column tile) pair and loops over the tile's
-// steps [step_start[b], step_start[b+1]).  Inside a tile the body is K2's
-// (window_kernels.cuh): the (W, BT) x window and accumulator in shared
-// memory, the B axis cut into column tiles of BT columns under a 64 KB
-// budget (grid.y), (slot, column) work items with the column fastest, so a
-// warp reads neighbouring shared words and one slot's indices by broadcast;
-// shared-memory atomicAdd for the scatter (order varies from run to run,
-// exact on dyadic data); sentinels and x bounds as in K5.
+// steps [step_start[b], step_start[b+1]).  The body is K2's
+// (window_kernels.cuh), which is K5's with a loop over the columns: the
+// (W, BT) x window and accumulator in shared memory at an odd row stride,
+// the B axis cut into column tiles of BT columns under a 64 KB budget
+// (grid.y); four consecutive slots per lane read once per pass in vector
+// loads, the warp's runs of equal rows found once per pass; per column the
+// row half summed per lane and across the warp and added once per run
+// piece, the column half one shared add per slot in K5's swizzled order.
+// Needs K5's row order and lane loads (blockell.check_slot_order where the
+// pack is built, loaded or converted; _build.check_lane_loads in the
+// wrapper).  The order of additions varies from run to run (exact on dyadic
+// data).
 //
-// Bound on this card: bytes — the value and index streams amortize over the
-// B columns.  With B columns a warp's 32 lanes cover 32/B slots, so the
-// row-side atomics of a wide-band row collide on B distinct words instead of
-// one: less serialized than K5, but the heavy tiles remain a tail.
+// Bound on this card: bytes — the slot streams amortize over the B
+// columns.  On skewed matrices the wide band's tiles carry up to 64 steps
+// each and take most of the time (measured: PERF.md).
 #include "window_kernels.cuh"
 
 extern "C" int flat_spmm_stream(const void* vals_l, const void* vals_u,

@@ -26,6 +26,7 @@ extern "C" int nnzsplit_spmv_stream(const void* vals, const void* lrow,
                                     const void* src, const void* x, void* out,
                                     int num_chunks, int s, int r_pad, int n,
                                     int val_bf16, int idx_i16, void* stream) {
-  return launch_chunk_stream(vals, lrow, src, x, out, num_chunks, s, r_pad, n,
-                             1, 1, val_bf16, idx_i16, stream);
+  return launch_chunk_stream<false>(vals, lrow, src, x, out, num_chunks, s,
+                                    r_pad, n, 1, 1, val_bf16, idx_i16,
+                                    stream);
 }

@@ -1,7 +1,7 @@
 // Warp-segmented sums over runs of equal keys, shared by the stream bodies
 // that sum a warp's slots by row before one shared-memory add per run: the
-// window stream SpMV (K1, K5: window_kernels.cuh) and the chunk stream sums
-// (K9, K10: chunk_kernels.cuh).
+// window stream products (K1, K2, K5, K6: window_kernels.cuh) and the chunk
+// stream sums (K9, K10: chunk_kernels.cuh).
 //
 // The keys must never decrease along the lanes of the warp (lanes below a
 // lane that stores, at least): then two lanes 2^i apart with equal keys

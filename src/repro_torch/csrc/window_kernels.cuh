@@ -12,9 +12,9 @@
 //              sparse one a single step (no padding to the densest tile)
 //
 // One block owns one tile and loops over its slots; each .cu file holds the
-// C entry point of one kernel and its design notes.  The SpMV body (K1, K5)
-// sums a warp's slots by row, so it needs the row order that
-// blockell.check_slot_order checks wherever a pack is built, loaded or
+// C entry point of one kernel and its design notes.  Both bodies (SpMV: K1,
+// K5; SpMM: K2, K6) sum a warp's slots by row, so they need the row order
+// that blockell.check_slot_order checks wherever a pack is built, loaded or
 // converted: rows never decrease inside a tile or a k-step.
 #pragma once
 
@@ -206,8 +206,34 @@ int launch_spmv_stream(const void* vals_l, const void* vals_u,
 }
 
 // ---------------------------------------------------------------------------
-// Streaming SpMM: (slot, column) work items, B axis in column tiles (K2, K6)
+// Streaming SpMM: K1/K5's lanes and warp runs, once per column (K2, K6)
 // ---------------------------------------------------------------------------
+//
+// One block owns one (row tile, column tile) pair: the B axis is cut into
+// column tiles of BT columns (grid.y) so that the (W, BT) x window and
+// accumulator fit the shared-memory budget.  Both are laid out row by row
+// with an odd row stride ld = BT | 1 (one word of padding for an even BT).
+// The slots are read as in K1/K5: a lane loads kLaneSlots consecutive slots
+// of each stream once per pass, and the warp's run structure (warp_runs,
+// keyed by the row of each lane's last run) is computed once per pass.
+// Then, for each column j of the tile:
+//
+//   row half     al*x[col, j] summed by row over the lane's slots in slot
+//                order; a run that ends inside the lane is added at once,
+//                the lane's last run goes through the warp's segmented scan
+//                and its run's tail lane adds the sum: one shared add per
+//                run piece and column;
+//   column half  au*x[row, j] -> [col, j], one add per slot, in the
+//                swizzled slot order j' ^ ((L >> 3) & 3) of K1/K5.  On a
+//                long row lanes L and L+8 hold columns 32 apart, words
+//                32*ld apart: with ld odd the swizzle's offsets 0-3 rows put
+//                the 32 adds in 32 banks for every BT.
+//
+// A shared float atomicAdd is a compare-and-swap loop on sm_90a, so
+// the adds are what the body spends: per (slot, column) one on the column
+// half, and on the row half one per run piece instead of one per slot,
+// where a wide row's lanes would meet on its few words.  Sentinels, bounds
+// and the diagonal as in K1/K5.
 
 template <typename V, typename I, typename Tiles>
 __global__ void __launch_bounds__(kThreads)
@@ -220,35 +246,80 @@ spmm_stream_kernel(const V* __restrict__ vals_l, const V* __restrict__ vals_u,
   const int b = blockIdx.x;
   const int j0 = blockIdx.y * bt;           // first column of this tile
   const int cols = min(bt, nrhs - j0);      // columns in this tile
+  const int ld = bt | 1;                    // odd row stride of both windows
   const int tid = threadIdx.x;
-  float* xw = smem;                          // (W, cols) x window
-  float* acc = smem + static_cast<size_t>(w_pad) * bt;   // (W, cols)
+  float* xw = smem;                                    // (W, ld) x window
+  float* acc = smem + static_cast<size_t>(w_pad) * ld;  // (W, ld) output
 
   const int items_w = w_pad * cols;
   for (int q = tid; q < items_w; q += kThreads) {
     const int w = q / cols;
     const int j = q - w * cols;
     long long g = window_row(b, tm, w_pad, w, n);
-    xw[q] = g >= 0 ? x[static_cast<size_t>(g) * nrhs + j0 + j] : 0.0f;
-    acc[q] = 0.0f;
+    xw[w * ld + j] = g >= 0 ? x[static_cast<size_t>(g) * nrhs + j0 + j] : 0.0f;
+    acc[w * ld + j] = 0.0f;
   }
   __syncthreads();
 
   const TileSlots ts = tiles(b);
-  const size_t base = ts.base;
-  const long long items_s = static_cast<long long>(ts.count) * cols;
-  for (long long q = tid; q < items_s; q += kThreads) {
-    const int p = static_cast<int>(q / cols);
-    const int j = static_cast<int>(q - static_cast<long long>(p) * cols);
-    const int c = load_index(col, base + p);
-    const int r = load_index(row, base + p);
-    if (static_cast<unsigned>(r) >= static_cast<unsigned>(w_pad)) continue;
-    const float vl = load_value(vals_l, base + p);
-    const int cg = min(max(c, 0), w_pad - 1);
-    atomicAdd(&acc[r * cols + j], vl * xw[cg * cols + j]);
-    if (static_cast<unsigned>(c) < static_cast<unsigned>(w_pad)) {
-      const float vu = num_sym ? vl : load_value(vals_u, base + p);
-      atomicAdd(&acc[c * cols + j], vu * xw[r * cols + j]);
+  const int swizzle = (tid >> 3) & 3;
+  for (int q = tid * kLaneSlots; q < ts.count; q += kThreads * kLaneSlots) {
+    const size_t at = ts.base + q;
+    int cs[kLaneSlots], rs[kLaneSlots];
+    float ls[kLaneSlots], us[kLaneSlots];
+    load4(col, at, cs);
+    load4(row, at, rs);
+    load4(vals_l, at, ls);
+    if (num_sym) {
+#pragma unroll
+      for (int i = 0; i < kLaneSlots; ++i) us[i] = ls[i];
+    } else {
+      load4(vals_u, at, us);
+    }
+    // Row half: each slot's row key (-1 outside the window) and gather
+    // offset; column half: target and source offsets in swizzled order,
+    // -1 for a slot that adds nothing.
+    int keys[kLaneSlots], gat[kLaneSlots], tgt[kLaneSlots], srcw[kLaneSlots];
+    float vu[kLaneSlots];
+#pragma unroll
+    for (int i = 0; i < kLaneSlots; ++i) {
+      keys[i] = static_cast<unsigned>(rs[i]) < static_cast<unsigned>(w_pad)
+                    ? rs[i]
+                    : -1;
+      gat[i] = min(max(cs[i], 0), w_pad - 1) * ld;
+    }
+#pragma unroll
+    for (int k = 0; k < kLaneSlots; ++k) {
+      const int i = k ^ swizzle;
+      const int r = pick(rs, i);
+      const int c = pick(cs, i);
+      const bool adds =
+          static_cast<unsigned>(r) < static_cast<unsigned>(w_pad) &&
+          static_cast<unsigned>(c) < static_cast<unsigned>(w_pad);
+      tgt[k] = adds ? c * ld : -1;
+      srcw[k] = adds ? r * ld : 0;
+      vu[k] = pick(us, i);
+    }
+    const int key = keys[kLaneSlots - 1];   // the row of the lane's last run
+    const WarpRuns runs = warp_runs(key);
+    for (int j = 0; j < cols; ++j) {
+      int k_run = -1;
+      float run = 0.0f;
+#pragma unroll
+      for (int i = 0; i < kLaneSlots; ++i) {
+        if (keys[i] != k_run) {   // the run of k_run ends inside the lane
+          if (k_run >= 0) atomicAdd(&acc[k_run * ld + j], run);
+          k_run = keys[i];
+          run = 0.0f;
+        }
+        run += ls[i] * xw[gat[i] + j];
+      }
+#pragma unroll
+      for (int k = 0; k < kLaneSlots; ++k) {
+        if (tgt[k] >= 0) atomicAdd(&acc[tgt[k] + j], vu[k] * xw[srcw[k] + j]);
+      }
+      const float sum = run_sum(runs, run);
+      if (key >= 0 && runs.tail) atomicAdd(&acc[key * ld + j], sum);
     }
   }
   __syncthreads();
@@ -258,7 +329,7 @@ spmm_stream_kernel(const V* __restrict__ vals_l, const V* __restrict__ vals_u,
   for (int q = tid; q < items_d; q += kThreads) {
     const int t = q / cols;
     const int j = q - t * cols;
-    const int at = (d0 + t) * cols + j;
+    const int at = (d0 + t) * ld + j;
     acc[at] += load_value(ad, static_cast<size_t>(b) * tm + t) * xw[at];
   }
   __syncthreads();
@@ -267,7 +338,7 @@ spmm_stream_kernel(const V* __restrict__ vals_l, const V* __restrict__ vals_u,
   for (int q = tid; q < items_w; q += kThreads) {
     const int w = q / cols;
     const int j = q - w * cols;
-    dst[static_cast<size_t>(w) * nrhs + j0 + j] = acc[q];
+    dst[static_cast<size_t>(w) * nrhs + j0 + j] = acc[w * ld + j];
   }
 }
 
@@ -277,7 +348,8 @@ int launch_spmm_stream(const void* vals_l, const void* vals_u,
                        const void* x, void* out, Tiles tiles, int nt, int tm,
                        int w_pad, int n, int nrhs, int bt, int num_sym,
                        int val_bf16, int idx_i16, void* stream) {
-  const size_t smem = 2 * static_cast<size_t>(w_pad) * bt * sizeof(float);
+  const size_t smem =
+      2 * static_cast<size_t>(w_pad) * (bt | 1) * sizeof(float);
   const dim3 grid(nt, (nrhs + bt - 1) / bt);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define LAUNCH(V, I)                                                         \

@@ -179,18 +179,19 @@ def reset_launch_counts() -> None:
 
 
 def check_lane_loads(pack, tile_slots: int) -> None:
-    """Raise ValueError unless the stream SpMVs (K1, K5) can read ``pack``:
-    a lane loads four consecutive slots of each slot stream at once (16
-    bytes of a 32-bit stream, 8 of a 16-bit one) and a warp 128 slots, so
+    """Raise ValueError unless the window stream kernels (K1, K2, K5, K6)
+    can read ``pack``: a lane loads four consecutive slots of each slot
+    stream at once (16 bytes of a 32-bit stream, 8 of a 16-bit one) and a
+    warp 128 slots, so
     a tile's slot count or the k-step (``tile_slots``) must be a multiple
     of 128 and every slot stream must start on a 16-byte boundary."""
     if tile_slots % 128:
         raise ValueError(f"{tile_slots} slots per tile or k-step: the "
-                         "stream SpMV needs a multiple of 128")
+                         "stream kernels need a multiple of 128")
     for name in ("vals_l", "vals_u", "col_local", "row_in_win"):
         if getattr(pack, name).data_ptr() % 16:
             raise ValueError(f"pack.{name} must start on a 16-byte boundary "
-                             "for the stream SpMV's vector loads")
+                             "for the stream kernels' vector loads")
 
 
 def stream_flags(pack, slots_shape: tuple) -> tuple:

@@ -8,7 +8,9 @@ bytes per product grow far slower than the flops.
   'stream'  K2, csrc/blockell_spmm_stream.cu — replaces the TPU body
             kernels/csrc_spmm.py::_kernel_stream of the JAX package.
             Bound by bytes; (W, BT) x window and accumulator in shared
-            memory, the B axis cut into column tiles of BT columns.
+            memory, the B axis cut into column tiles of BT columns, K1's
+            lanes and warp row runs (csrc/window_kernels.cuh) once per
+            column.
   'onehot'  K4, csrc/blockell_spmm_onehot.cu — replaces
             kernels/csrc_spmm.py::_kernel.  K3's run-and-bucket body
             (csrc/window_runs.cuh) with the products formed per column: one
@@ -65,8 +67,12 @@ def spmm_windows_onehot_plain(pack: BlockEll, X: torch.Tensor,
 
 
 def spmm_windows_stream_cuda(pack: BlockEll, X: torch.Tensor) -> torch.Tensor:
-    """Launch K2; returns the (NT, W, B) windows."""
+    """Launch K2; returns the (NT, W, B) windows.  As for K1, the pack's
+    rows must not decrease inside a tile (``blockell.check_slot_order``,
+    run where the pack was built, loaded or converted) and its slot
+    streams must be 16-byte aligned (``_build.check_lane_loads``)."""
     X, pointers, flags = _kernel_operands(pack, X, ndim=2)
+    _build.check_lane_loads(pack, pack.s)
     nrhs = X.shape[1]
     out = torch.empty((pack.nt, pack.w_pad, nrhs), dtype=torch.float32,
                       device=X.device)

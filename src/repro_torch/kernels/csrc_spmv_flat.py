@@ -27,9 +27,9 @@ Kernels, selected by ``variant``:
             shared-memory window.  K5 sums each run of equal rows per lane
             (four consecutive slots) and per warp (shuffles,
             csrc/warp_scan.cuh) and adds it once, the column half one
-            atomic add per slot; K6 adds every (slot, column) item with
-            its own atomic.  K5 needs the slot order checked below, as
-            K7/K8 do.
+            atomic add per slot; K6 is the same body with a loop over the
+            columns (slots read once per pass, runs found once per pass).
+            Both need the slot order checked below, as K7/K8 do.
   'onehot'  K7, csrc/flat_spmv_onehot.cu, and K8, csrc/flat_spmm_onehot.cu
             — replace ::_kernel / ::_kernel_mm.  One block per tile (and
             column tile) over the tile's steps, the body of
@@ -414,8 +414,11 @@ def flat_spmv_onehot_cuda(pack: FlatBlockEll, x: torch.Tensor) -> torch.Tensor:
 
 
 def flat_spmm_stream_cuda(pack: FlatBlockEll, X: torch.Tensor) -> torch.Tensor:
-    """Launch K6; returns the (NT, W, B) windows."""
+    """Launch K6; returns the (NT, W, B) windows.  K6 is K5's body once per
+    column: the same row order inside a k-step and 16-byte aligned slot
+    streams (``_build.check_lane_loads``)."""
     X, pointers, flags = _launch_operands(pack, X, ndim=2)
+    _build.check_lane_loads(pack, pack.step)
     nrhs = X.shape[1]
     out = torch.empty((pack.nt, pack.w_pad, nrhs), dtype=torch.float32,
                       device=X.device)

@@ -31,7 +31,9 @@ in L2; the JAX package's gathered ``xg`` stream is never materialized):
             csrc/nnzsplit_spmm_stream.cu — replace the TPU bodies
             kernels/csrc_spmv_nnzsplit.py::_kernel_stream /
             _kernel_mm_stream.  Bound by bytes; one block per chunk, a
-            warp-segmented sum by ``lrow`` into a shared-memory row.
+            warp-segmented sum by ``lrow`` into a shared-memory row; K10
+            first copies a warp's 32 X rows into shared memory with the
+            column fastest.
   'onehot'  K11, csrc/nnzsplit_spmv_onehot.cu, and K12,
             csrc/nnzsplit_spmm_onehot.cu — replace ::_kernel / ::_kernel_mm.
             One body (csrc/chunk_kernels.cuh ``chunk_runs_kernel``), K11 its

@@ -209,13 +209,17 @@ def test_onehot_rect_kernels_equal_plain_on_adversarial_packs(card, case):
         assert torch.equal(got, kernel(pack, x, ks * 128))
 
 
-@pytest.mark.parametrize("grid,case", [
+# the window stream kernels' adversary packs (K1/K5, K2/K6): grid, case
+STREAM_ADVERSARIES = [
     ("rect", "row_spans_steps"), ("rect", "bucket_128"),
     ("rect", "padding_only_steps"), ("rect", "w4096_bf16_i16"),
     ("rect", "warp_run_edges"), ("rect", "warp_run_edges_bf16_i16"),
     ("flat", "row_spans_steps"), ("flat", "bucket_128"),
     ("flat", "w4096_bf16_i16"), ("flat", "warp_run_edges"),
-    ("flat", "warp_run_edges_bf16_i16")])
+    ("flat", "warp_run_edges_bf16_i16")]
+
+
+@pytest.mark.parametrize("grid,case", STREAM_ADVERSARIES)
 def test_stream_spmv_kernels_equal_plain_on_adversarial_packs(card, grid,
                                                               case):
     """K1 (rectangular) and K5 (flat), whose lanes and warps sum runs of
@@ -241,6 +245,31 @@ def test_stream_spmv_kernels_equal_plain_on_adversarial_packs(card, grid,
         assert torch.equal(kernel(pack, x), plain(pack, x))
 
 
+@pytest.mark.parametrize("grid,case", STREAM_ADVERSARIES)
+def test_stream_spmm_kernels_equal_plain_on_adversarial_packs(card, grid,
+                                                              case):
+    """K2 (rectangular) and K6 (flat), K1/K5's lanes and warp runs once per
+    column, against their plain versions on the same adversary packs at B
+    = 1, 3, 11 and 64, exactly on dyadic data; at W = 4096 B = 3 leaves a
+    partial column tile (BT = 2, then 1)."""
+    M, gen, ks, kw = _adversary(case)
+    if grid == "rect":
+        pack = blockell.pack(M, k_step=ks * 128, **kw).to(card)
+        step, kernel, plain = (ks * 128, mm.spmm_windows_stream_cuda,
+                               mm.spmm_windows_stream_plain)
+    else:
+        pack = fl.pack_flat(M, ks=ks, **kw).to(card)
+        step, kernel, plain = (pack.step, fl.flat_spmm_stream_cuda,
+                               fl.flat_windows_stream_plain)
+    _assert_has_feature(gen, pack, step)
+    if pack.w_pad == 4096:
+        assert mm.column_tile(pack.w_pad, 3, 2) == 2
+    rng = np.random.default_rng(8)
+    for nrhs in (1, 3, 11, 64):
+        X = _dyadic_x(rng, M.n, nrhs, card).reshape(M.n, nrhs)
+        assert torch.equal(kernel(pack, X), plain(pack, X)), nrhs
+
+
 @pytest.mark.parametrize("grid", ["rect", "flat"])
 def test_stream_spmv_wrappers_refuse_misaligned_streams(card, grid):
     """K1/K5 read four slots per lane in one vector load: a slot stream that
@@ -263,6 +292,30 @@ def test_stream_spmv_wrappers_refuse_misaligned_streams(card, grid):
     before = _build.launch_counts()[name]
     with pytest.raises(ValueError, match="16-byte boundary"):
         kernel(bad, x)
+    assert _build.launch_counts()[name] == before
+
+
+@pytest.mark.parametrize("grid", ["rect", "flat"])
+def test_stream_spmm_wrappers_refuse_misaligned_streams(card, grid):
+    """K2/K6 read the slot streams as K1/K5 do: a value stream that does
+    not start on a 16-byte boundary raises ValueError in the wrapper, and
+    nothing is launched."""
+    import dataclasses
+    M = _dyadic_skewed()
+    if grid == "rect":
+        pack = blockell.pack(M).to(card)
+        kernel, name = mm.spmm_windows_stream_cuda, "blockell_spmm_stream"
+    else:
+        pack = fl.pack_flat(M).to(card)
+        kernel, name = fl.flat_spmm_stream_cuda, "flat_spmm_stream"
+    vals = torch.empty(pack.vals_l.numel() + 1, dtype=pack.vals_l.dtype,
+                       device=card)[1:]
+    vals.copy_(pack.vals_l.reshape(-1))
+    bad = dataclasses.replace(pack, vals_l=vals.view(pack.vals_l.shape))
+    X = torch.ones((M.n, 3), device=card)
+    before = _build.launch_counts()[name]
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        kernel(bad, X)
     assert _build.launch_counts()[name] == before
 
 
@@ -516,3 +569,24 @@ def test_k12_equals_plain_on_adversarial_packs(card, case, kernel):
         got = nz.nnzsplit_spmm_onehot_cuda(pack, X)
         assert torch.equal(got, nz.nnzsplit_partials_onehot_plain(pack, X))
         assert torch.equal(got, nz.nnzsplit_spmm_onehot_cuda(pack, X))
+
+
+@pytest.mark.parametrize("case", NNZ_CASES)
+def test_k10_equals_plain_on_adversarial_packs(card, case):
+    """K10 (X rows staged per warp with the column fastest) on the K12
+    adversary packs at B = 3, 8, 11 and 64, and K9 (the direct gather) at B
+    = 1: equal to their plain versions bit for bit on dyadic data."""
+    sm = chip_smoke()
+    vdt, idt, ks = sm.NNZ_ADVERSARIES[case]
+    arrays = sm.nnzsplit_adversary_arrays(case, seed=0)
+    M = csrc.from_assembly(arrays[0].shape[0] - 1, *arrays)
+    pack = nz.pack_nnzsplit(M, ks=ks, dtype=vdt, index_dtype=idt).to(card)
+    assert sm.nnzsplit_case_holds(case, sm.nnzsplit_chunk_geometry(pack))
+    rng = np.random.default_rng(10)
+    x = _dyadic_x(rng, M.n, 1, card)
+    assert torch.equal(nz.nnzsplit_spmv_stream_cuda(pack, x),
+                       nz.nnzsplit_partials_stream_plain(pack, x))
+    for nrhs in (3, 8, 11, 64):
+        X = _dyadic_x(rng, M.n, nrhs, card)
+        assert torch.equal(nz.nnzsplit_spmm_stream_cuda(pack, X),
+                           nz.nnzsplit_partials_stream_plain(pack, X)), nrhs

@@ -312,6 +312,30 @@ def test_flat_spmv_bit_identical_on_warp_run_edges(variant):
         yt.numpy(), (A @ x.astype(np.float64)).astype(np.float32))
 
 
+@pytest.mark.parametrize("nrhs", [3, 11])
+def test_flat_spmm_stream_bit_identical_on_warp_run_edges(nrhs):
+    """K6's plain version through ``flat_spmm`` against the Pallas body
+    (``variant="stream"``) on the matrix of ``chip_smoke.py``'s
+    ``warp_run_edges`` (on the card K6's warps see runs end at every
+    position, once per column, and runs cross step ends): the product and
+    the dense one, bit for bit on dyadic data."""
+    arrays = chip_smoke().onehot_adversary_arrays("warp_run_edges", seed=0)
+    n = arrays[0].shape[0] - 1
+    Mj = jcsrc.from_assembly(n, *arrays)
+    pj = jflat.pack_flat(Mj, ks=8)
+    pt = tflat.pack_flat(to_torch_csrc(Mj), ks=8)
+    X = dyadic_x(n, nrhs, seed=6).reshape(n, nrhs)
+    yj = jflat.flat_spmm(pj, jnp.asarray(X), interpret=True,
+                         variant="stream")
+    yt = tflat.flat_spmm(pt, torch.from_numpy(X), variant="stream")
+    np.testing.assert_array_equal(np.asarray(yj), yt.numpy())
+    A = jcsrc.to_dense(Mj).astype(np.float64)
+    np.testing.assert_array_equal(
+        yt.numpy(), (A @ X.astype(np.float64)).astype(np.float32))
+    wins = tflat.flat_spmm_windows(pt, torch.from_numpy(X), variant="stream")
+    assert wins.shape == (pt.nt, pt.w_pad, nrhs)
+
+
 @pytest.mark.parametrize("nrhs", [1, 3, 8])
 @pytest.mark.parametrize("variant", ["onehot", "stream"])
 @pytest.mark.parametrize("name,tm,ks", [("skew1024", 64, 1),

@@ -168,6 +168,33 @@ def test_windows_bit_identical_on_warp_run_edges(variant):
         yt.numpy(), (A @ x.astype(np.float64)).astype(np.float32))
 
 
+@pytest.mark.parametrize("nrhs", [3, 11])
+def test_spmm_stream_bit_identical_on_warp_run_edges(nrhs):
+    """K2's plain version against the Pallas body (``variant="stream"``) on
+    the matrix of ``chip_smoke.py``'s ``warp_run_edges`` (row widths
+    cycling over 1, 1, 1..33, 64, 128 and 300: on the card K2's warps see
+    runs end at every position, once per column): the product and the
+    dense one, bit for bit on dyadic data, and the windows it sums."""
+    arrays = chip_smoke().onehot_adversary_arrays("warp_run_edges", seed=0)
+    n = arrays[0].shape[0] - 1
+    Mj = jcsrc.from_assembly(n, *arrays)
+    pj = jbe.pack(Mj, k_step=8 * 128)
+    pt = tbe.pack(to_torch_csrc(Mj), k_step=8 * 128)
+    X = dyadic_x(n, nrhs, seed=5).reshape(n, nrhs)
+    yj = jmm.blockell_spmm(pj, jnp.asarray(X), k_step_sublanes=8,
+                           interpret=True, variant="stream")
+    yt = tmm.blockell_spmm(pt, torch.from_numpy(X), k_step_sublanes=8,
+                           variant="stream")
+    np.testing.assert_array_equal(np.asarray(yj), yt.numpy())
+    A = jcsrc.to_dense(Mj).astype(np.float64)
+    np.testing.assert_array_equal(
+        yt.numpy(), (A @ X.astype(np.float64)).astype(np.float32))
+    wins = tmm.blockell_spmm_windows(pt, torch.from_numpy(X),
+                                     k_step_sublanes=8, variant="stream")
+    np.testing.assert_array_equal(tbe.overlap_add_mm(pt, wins).numpy(),
+                                  yt.numpy())
+
+
 def test_onehot_plain_chunking_does_not_change_result(monkeypatch):
     Mj, pj, pt = _packs("fem_band", 32)
     x = torch.from_numpy(dyadic_x(Mj.n, 3, seed=2))
@@ -194,6 +221,41 @@ def test_stream_spmv_lane_loads_need_whole_warps_and_aligned_streams():
     bad = dataclasses.replace(pt, col_local=shifted.view(pt.nt, pt.s))
     with pytest.raises(ValueError, match="16-byte boundary"):
         _build.check_lane_loads(bad, bad.s)
+
+
+@pytest.mark.parametrize("grid", ["rect", "flat"])
+def test_spmm_stream_wrappers_check_lane_loads_before_building(grid,
+                                                               monkeypatch):
+    """K2/K6 load four slots per lane like K1/K5: their wrappers run
+    ``_build.check_lane_loads`` before anything is built or launched, so a
+    slot stream off a 16-byte boundary raises ValueError there.  (The
+    operands' CUDA-tensor check is stubbed so that a CPU pack reaches it.)"""
+    import dataclasses
+    from repro_torch.kernels import csrc_spmv_flat as tfl
+    M = to_torch_csrc(MATRICES["fem_band"]())
+    if grid == "rect":
+        pack = tbe.pack(M, tm=32, k_step=KS * 128)
+        monkeypatch.setattr(tmm, "_kernel_operands",
+                            lambda p, x, ndim: (x, (), ()))
+        wrapper, name = tmm.spmm_windows_stream_cuda, "blockell_spmm_stream"
+    else:
+        pack = tfl.pack_flat(M, tm=32, ks=1)
+        monkeypatch.setattr(tfl, "_launch_operands",
+                            lambda p, x, ndim: (x, (), ()))
+        wrapper, name = tfl.flat_spmm_stream_cuda, "flat_spmm_stream"
+
+    def no_build(*args, **kwargs):
+        raise AssertionError("a kernel was built before the lane-load check")
+    monkeypatch.setattr(_build, "build", no_build)
+    shifted = torch.empty(pack.row_in_win.numel() + 1,
+                          dtype=pack.row_in_win.dtype)[1:]
+    shifted.copy_(pack.row_in_win.reshape(-1))
+    bad = dataclasses.replace(pack, row_in_win=shifted.view(
+        pack.row_in_win.shape))
+    before = _build.launch_counts()[name]
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        wrapper(bad, torch.ones((M.n, 3)))
+    assert _build.launch_counts()[name] == before
 
 
 def test_wrappers_validate_and_never_launch_on_cpu():

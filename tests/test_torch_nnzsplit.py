@@ -392,6 +392,31 @@ def test_k12_adversary_packs_have_their_features(case, kernel):
     assert torch.equal(got, tnz.nnzsplit_partials_stream_plain(pack, x))
 
 
+@pytest.mark.parametrize("case", ["hub_fills_chunks", "run_crosses_pass"])
+def test_k10_plain_bit_identical_on_adversary_packs(case):
+    """K10's plain version through ``nnzsplit_spmm`` against the Pallas
+    body (``variant="stream"``) at B = 11 on two of ``chip_smoke.py``'s
+    adversary matrices (a star's hub row filling whole chunks; runs cut by
+    a pass end): the product, the dense one and the partials' ``np.add.at``
+    oracle, bit for bit on dyadic data."""
+    sm = chip_smoke()
+    arrays = sm.nnzsplit_adversary_arrays(case, seed=0)
+    n = arrays[0].shape[0] - 1
+    Mj = jcsrc.from_assembly(n, *arrays)
+    pj = jnz.pack_nnzsplit(Mj, ks=8)
+    pt = tnz.pack_nnzsplit(to_torch_csrc(Mj), ks=8)
+    X = dyadic_x(n, 11, seed=12).reshape(n, 11)
+    yj = jnz.nnzsplit_spmm(pj, jnp.asarray(X), interpret=True,
+                           variant="stream")
+    yt = tnz.nnzsplit_spmm(pt, torch.from_numpy(X), variant="stream")
+    np.testing.assert_array_equal(np.asarray(yj), yt.numpy())
+    A = jcsrc.to_dense(Mj).astype(np.float64)
+    np.testing.assert_array_equal(
+        yt.numpy(), (A @ X.astype(np.float64)).astype(np.float32))
+    part = tnz._partials(pt, torch.from_numpy(X), 2, "stream")
+    np.testing.assert_array_equal(part.numpy(), _partials_oracle(pj, X))
+
+
 @pytest.mark.parametrize("r_pad,nrhs,tile", [
     (128, 11, 11), (128, 64, 25), (4096, 64, 2), (4096, 1, 1)])
 def test_k12_column_tile_fits_the_shared_memory_budget(r_pad, nrhs, tile):
