@@ -43,8 +43,9 @@ windows of the ``kernel`` path — and solves it by CG on the colorful one.
 
 Every phase prints one JSON line.  Before the last line come one JSON
 object ``{"kernels": [...]}`` (per kernel: launches on its path's main run,
-error against the plain version, time, plain time, bound, library time)
-and the card's name and power limit.  The last line is
+error against the plain version, time, plain time, bound, library time;
+beside K9 the time of the nnz-split fix-up that follows it) and the card's
+name and power limit.  The last line is
 ``{"ok": true, "device": {...}}``.  Any failing phase, a missing card or a
 kernel that does not build ends the run with a non-zero exit code; nothing
 falls back to the CPU or to a plain version.
@@ -420,19 +421,41 @@ def onehot_case_holds(case, geometry) -> bool:
                 and geometry["runs_over_step_end"] > 0)
     return geometry["w_pad"] == 4096
 
-# K12's adversary packs (``nnzsplit_adversary_arrays``): case -> (value
-# dtype, index dtype, ks)
+
+def lane_run_arrays(seed, sinks=320, cycles=80):
+    """Rows from ``sinks`` on, whose lower entries all fall in the first
+    ``sinks`` columns, with widths cycling over 1, 1, 1..33, 64, 128 and
+    300 (``cycles`` times): in the combined stream those rows hold exactly
+    their widths, after the sink rows, which hold their upper partners —
+    row 0 one entry per cycled row, so it fills whole chunks.  Dyadic
+    values.  Returns (ia, ja, ad, al, au)."""
+    cycle = np.concatenate([[1, 1], np.arange(1, 34), [64, 128, 300]])
+    width = np.tile(cycle, cycles).astype(np.int64)
+    n = sinks + width.shape[0]
+    hi = np.repeat(np.arange(sinks, n, dtype=np.int64), width)
+    lo = np.arange(hi.shape[0]) - np.repeat(np.cumsum(width) - width, width)
+    ia, ja, _ = _lower_from_pairs(n, hi, lo)
+    rng = np.random.default_rng(seed)
+    al = _dyadic_values(rng, ja.shape[0])
+    au = _dyadic_values(rng, ja.shape[0])
+    return ia, ja, np.full(n, 8.0, dtype=np.float32), al, au
+
+
+# the nnz-split adversary packs (``nnzsplit_adversary_arrays``): case ->
+# (value dtype, index dtype, ks)
 NNZ_ADVERSARIES = {
     "hub_fills_chunks": (torch.float32, torch.int32, 8),
     "run_crosses_pass": (torch.float32, torch.int32, 8),
     "r_pad_4096": (torch.float32, torch.int32, 8),
     "bf16_i16": (torch.bfloat16, torch.int16, 8),
+    "lane_run_edges": (torch.float32, torch.int32, 8),
+    "lane_run_edges_bf16_i16": (torch.bfloat16, torch.int16, 8),
 }
 
 
 def nnzsplit_adversary_arrays(case, seed):
     """A small matrix (dyadic values) whose nnz-split pack (``NNZ_ADVERSARIES``
-    gives its dtypes and ks) stresses K11/K12's row runs:
+    gives its dtypes and ks) stresses K11/K12's row runs or K9's warp runs:
 
       hub_fills_chunks  a star graph's centre: one row fills whole chunks,
                         so one thread per column adds 1,024 entries;
@@ -441,7 +464,16 @@ def nnzsplit_adversary_arrays(case, seed):
                         where a pass of the kernel ends;
       r_pad_4096        two dense rows 3,999 apart in one chunk;
       bf16_i16          a power-law graph in bfloat16 values and int16
-                        indices.
+                        indices;
+      lane_run_edges    (and its bfloat16 / int16 twin) rows of the
+                        combined stream 1, 1, 1..33, 64, 128 and 300
+                        entries long (``lane_run_arrays``): in lanes of
+                        four consecutive entries and warps of 128 (the
+                        four-entry forms of ``tools/k9_body_probe.py``;
+                        K9's warps take 32) a run ends at each of the 128
+                        positions, four entries of a lane hold four rows,
+                        runs cross warp, pass (512 entries) and chunk
+                        ends, and a hub row fills whole chunks.
 
     Returns (ia, ja, ad, al, au)."""
     if case == "hub_fills_chunks":
@@ -450,20 +482,39 @@ def nnzsplit_adversary_arrays(case, seed):
         return random_arrays(3000, seed, dyadic=True)
     if case == "r_pad_4096":
         return gap_arrays(seed)
+    if case.startswith("lane_run_edges"):
+        return lane_run_arrays(seed)
     return powerlaw_arrays(20000, seed, dyadic=True)
 
 
 def nnzsplit_chunk_geometry(pack):
-    """What the K11/K12 adversary cases aim at, read off an ``NnzSplitPack``:
-    the chunks holding one row only, the runs cut by the end of a kernel
-    pass (``csrc_spmv_nnzsplit._STAGE`` entries), r_pad and the dtypes."""
+    """What the nnz-split adversary cases aim at, read off an
+    ``NnzSplitPack``: the chunks holding one row only, the runs cut by the
+    end of a kernel pass (``csrc_spmv_nnzsplit._STAGE`` entries: K11/K12's
+    stage, and the pass of 128 lanes of four entries), r_pad and the
+    dtypes; for lanes of four consecutive entries and warps of 128: the
+    positions in a warp at which a run ends inside a chunk, the lanes
+    holding four rows, and the runs that cross a warp's end or run on from
+    one chunk into the next."""
     from repro_torch.kernels.csrc_spmv_nnzsplit import _STAGE
     lrow = pack.lrow.long()
-    cuts = torch.arange(_STAGE, pack.s, _STAGE)
+    dev = lrow.device
+    cuts = torch.arange(_STAGE, pack.s, _STAGE, device=dev)
+    same = lrow[:, 1:] == lrow[:, :-1]      # entry e + 1 continues e's run
+    position = torch.arange(pack.s - 1, device=dev) % 128
+    lanes = lrow.reshape(lrow.shape[0], -1, 4)
+    warp_ends = torch.arange(127, pack.s - 1, 128, device=dev)
+    dest = pack.chunk_row0.long()[:, None] + lrow
     return {"r_pad": pack.r_pad, "s": pack.s,
             "one_row_chunks": int((lrow == lrow[:, :1]).all(1).sum()),
             "runs_across_passes": int((lrow[:, cuts - 1]
                                        == lrow[:, cuts]).sum()),
+            "run_end_positions": int(torch.unique(
+                position[(~same).any(0)]).numel()),
+            "four_row_lanes": int((lanes[..., 1:] != lanes[..., :-1]).all(-1)
+                                  .sum()),
+            "runs_over_warp_end": int(same[:, warp_ends].sum()),
+            "runs_over_chunk_end": int((dest[1:, 0] == dest[:-1, -1]).sum()),
             "dtypes": [str(pack.vals.dtype), str(pack.lrow.dtype)]}
 
 
@@ -476,7 +527,18 @@ def nnzsplit_case_holds(case, geometry) -> bool:
         return geometry["runs_across_passes"] > 0
     if case == "r_pad_4096":
         return geometry["r_pad"] == 4096
-    return geometry["dtypes"] == ["torch.bfloat16", "torch.int16"]
+    narrow = ["torch.bfloat16", "torch.int16"]
+    if case.startswith("lane_run_edges"):
+        dtypes = (narrow if case.endswith("bf16_i16")
+                  else ["torch.float32", "torch.int32"])
+        return (geometry["run_end_positions"] == 128
+                and geometry["four_row_lanes"] > 0
+                and geometry["runs_over_warp_end"] > 0
+                and geometry["runs_across_passes"] > 0
+                and geometry["runs_over_chunk_end"] > 0
+                and geometry["one_row_chunks"] > 0
+                and geometry["dtypes"] == dtypes)
+    return geometry["dtypes"] == narrow
 
 
 ASM_ADVERSARIES = ("race_fan", "tile_over_one_pass", "empty_tile",
@@ -1395,6 +1457,15 @@ def phase_path_kernels(work: Workload, eng, spec, launches):
             bytes_moved += (pack.num_chunks * pack.r_pad + n) * 4 * nrhs
             flops = 2 * (2 * work.M[mid].k) * nrhs
             extra["product_streamed_bytes"] = pack.streamed_bytes(nrhs)
+            if kname == "nnzsplit_spmv_stream":
+                # the fix-up after K9 (torch ops, as the reference's
+                # .at[].add): fixup_idx to int64, y_pad zeroed, index_add_
+                # of the partials, the diagonal
+                from repro_torch.kernels import csrc_spmv_nnzsplit as nz
+                partials = kernel(x)
+                extra["fixup_ms"] = time_ms(
+                    lambda: nz.fixup(pack, partials, x))
+                del partials
         else:
             # the windows' own bytes: the padded slots are the layout's
             layout = blockell.padding_bytes(pack)

@@ -590,3 +590,53 @@ def test_k10_equals_plain_on_adversarial_packs(card, case):
         X = _dyadic_x(rng, M.n, nrhs, card)
         assert torch.equal(nz.nnzsplit_spmm_stream_cuda(pack, X),
                            nz.nnzsplit_partials_stream_plain(pack, X)), nrhs
+
+
+@pytest.mark.parametrize("case", NNZ_CASES + ["lane_run_edges",
+                                              "lane_run_edges_bf16_i16"])
+def test_k9_equals_plain_on_adversarial_packs(card, case):
+    """K9 (the warp's runs of equal lrow summed by shuffles before one
+    shared add per run) on the nnz-split adversary packs — the K12 ones (a
+    hub row filling whole chunks, runs cut by a pass end, r_pad 4096,
+    bfloat16 / int16) and ``lane_run_edges`` in float32 / int32 and
+    bfloat16 / int16 (runs ending at every position of a warp of 128
+    entries, four rows in four consecutive entries, runs crossing warp,
+    pass and chunk ends): equal to its plain version bit for bit on dyadic
+    x, each launch counted once.  K9 adds in atomic order, so two runs are
+    not compared with each other."""
+    sm = chip_smoke()
+    vdt, idt, ks = sm.NNZ_ADVERSARIES[case]
+    arrays = sm.nnzsplit_adversary_arrays(case, seed=0)
+    M = csrc.from_assembly(arrays[0].shape[0] - 1, *arrays)
+    pack = nz.pack_nnzsplit(M, ks=ks, dtype=vdt, index_dtype=idt).to(card)
+    assert sm.nnzsplit_case_holds(case, sm.nnzsplit_chunk_geometry(pack))
+    rng = np.random.default_rng(14)
+    for _ in range(2):
+        x = _dyadic_x(rng, M.n, 1, card)
+        before = _build.launch_counts()["nnzsplit_spmv_stream"]
+        got = nz.nnzsplit_spmv_stream_cuda(pack, x)
+        assert _build.launch_counts()["nnzsplit_spmv_stream"] == before + 1
+        assert torch.equal(got, nz.nnzsplit_partials_stream_plain(pack, x))
+
+
+@pytest.mark.parametrize("pattern", ["powerlaw", "random"])
+def test_k9_within_rowsum_tolerance_on_general_values(card, pattern):
+    """K9 on standard-normal values and x at a mid-size pattern (n =
+    40,000: a power-law graph with hub rows, a random pattern of 20
+    entries a row): its partials within 2e-5 of the row's absolute sum of
+    the plain version's (both add in atomic order on the card)."""
+    import dataclasses
+    sm = chip_smoke()
+    n = 40000
+    arrays = (sm.powerlaw_arrays(n, 15, general=True) if pattern == "powerlaw"
+              else sm.random_arrays(n, 15))
+    M = csrc.from_assembly(n, *arrays)
+    pack = nz.pack_nnzsplit(M).to(card)
+    x = torch.from_numpy(np.random.default_rng(16).standard_normal(
+        n).astype(np.float32)).to(card)
+    apack = dataclasses.replace(pack, vals=pack.vals.abs())
+    bound = 2e-5 * nz.nnzsplit_partials_stream_plain(apack, x.abs())
+    got = nz.nnzsplit_spmv_stream_cuda(pack, x)
+    assert bool(torch.isfinite(got).all())
+    assert bool(((got - nz.nnzsplit_partials_stream_plain(pack, x)).abs()
+                 <= bound).all())

@@ -417,6 +417,58 @@ def test_k10_plain_bit_identical_on_adversary_packs(case):
     np.testing.assert_array_equal(part.numpy(), _partials_oracle(pj, X))
 
 
+LANE_CASES = ["lane_run_edges", "lane_run_edges_bf16_i16"]
+
+
+@pytest.mark.parametrize("case", LANE_CASES)
+def test_k9_lane_adversary_packs_have_their_features(case):
+    """``chip_smoke.py``'s ``lane_run_edges`` matrix (shared with the card
+    tests) gives a pack, in float32 / int32 and in bfloat16 / int16, in
+    which runs end at all 128 positions of a warp, a lane of four entries
+    holds four rows, runs cross warp, pass and chunk ends and a hub row
+    fills whole chunks; on it K9's plain version equals the one-hot one
+    on dyadic x."""
+    sm = chip_smoke()
+    vdt, idt, ks = sm.NNZ_ADVERSARIES[case]
+    arrays = sm.nnzsplit_adversary_arrays(case, seed=0)
+    M = tcsrc.from_assembly(arrays[0].shape[0] - 1, *arrays)
+    pack = tnz.pack_nnzsplit(M, ks=ks, dtype=vdt, index_dtype=idt)
+    geometry = sm.nnzsplit_chunk_geometry(pack)
+    assert sm.nnzsplit_case_holds(case, geometry), geometry
+    assert not sm.nnzsplit_case_holds(
+        "lane_run_edges", dict(geometry, four_row_lanes=0))
+    x = torch.from_numpy(dyadic_x(M.n, 1, seed=2))
+    assert torch.equal(tnz.nnzsplit_partials_stream_plain(pack, x),
+                       tnz.nnzsplit_partials_onehot_plain(pack, x))
+
+
+@pytest.mark.parametrize("case", LANE_CASES)
+def test_k9_plain_bit_identical_on_lane_adversary(case):
+    """K9's plain version through ``nnzsplit_spmv(..., variant="stream")``
+    against the Pallas body in interpret mode on the ``lane_run_edges``
+    pack (dyadic values): the product, the dense one and the partials'
+    ``np.add.at`` oracle, bit for bit."""
+    sm = chip_smoke()
+    arrays = sm.nnzsplit_adversary_arrays(case, seed=0)
+    n = arrays[0].shape[0] - 1
+    Mj = jcsrc.from_assembly(n, *arrays)
+    jv, ji, tv, ti = DTYPES["bf16_i16" if case.endswith("bf16_i16")
+                           else "f32_i32"]
+    pj = jnz.pack_nnzsplit(Mj, ks=8, dtype=jv, index_dtype=ji)
+    pt = tnz.pack_nnzsplit(to_torch_csrc(Mj), ks=8, dtype=tv, index_dtype=ti)
+    x = dyadic_x(n, 1, seed=13)
+    yj = jnz.nnzsplit_spmv(pj, jnp.asarray(x), interpret=True,
+                           variant="stream")
+    yt = tnz.nnzsplit_spmv(pt, torch.from_numpy(x), variant="stream")
+    np.testing.assert_array_equal(np.asarray(yj), yt.numpy())
+    A = jcsrc.to_dense(Mj).astype(np.float64)
+    np.testing.assert_array_equal(
+        yt.numpy(), (A @ x.astype(np.float64)).astype(np.float32))
+    part = tnz._partials(pt, torch.from_numpy(x), 1, "stream")
+    np.testing.assert_array_equal(part.numpy(),
+                                  _partials_oracle(pj, x)[..., 0])
+
+
 @pytest.mark.parametrize("r_pad,nrhs,tile", [
     (128, 11, 11), (128, 64, 25), (4096, 64, 2), (4096, 1, 1)])
 def test_k12_column_tile_fits_the_shared_memory_budget(r_pad, nrhs, tile):
