@@ -33,7 +33,14 @@ deployment would call real, one after the other:
             tuned strategy come back from a fresh cache with zero builds.
 
 Each path's two matrices are served by one ``SpmvServingEngine`` and solved
-by ``cg_solve`` / ``bicgstab``.  Answers are checked against a float64
+by ``cg_solve`` / ``bicgstab``.  After the ``kernel`` and ``flat`` paths'
+main runs, a tune phase registers their non-symmetric matrix (``fem_ns``,
+``skew_ns``) in a fresh ``SpmvServingEngine(autotune=True, serve_nrhs=8)``:
+the measured tuner prices every candidate plan with the card-calibrated
+cost model, measures the cheapest on the card at nrhs 1 and 8, serves a
+wave on the winner, holds the winner's time per column against the
+heuristic plan's, and registers the matrix again in a second engine on the
+same cache with no measurement and no pack.  Answers are checked against a float64
 ``scipy.sparse`` product built from the same COO data and against the
 port's own ``segment`` path.  A last phase serves one 2-D Poisson matrix
 (``--n``/8 rows: 512 x 512 at the default size) through the paper's two
@@ -41,11 +48,13 @@ strategies side by side —
 row coloring (the ``colorful`` path, torch ops) and the local-buffer
 windows of the ``kernel`` path — and solves it by CG on the colorful one.
 
-Every phase prints one JSON line.  Before the last line come one JSON
-object ``{"kernels": [...]}`` (per kernel: launches on its path's main run,
-error against the plain version, time, plain time, bound, library time;
-beside K9 the time of the nnz-split fix-up that follows it) and the card's
-name and power limit.  The last line is
+Every phase prints one JSON line (the ``calibration`` line: the cost
+model's denominators measured on the card; a ``card_pricing`` line per
+path: the cost model's price of each kernel's plan beside the bound's
+bytes).  Before the last line come one JSON object ``{"kernels": [...]}``
+(per kernel: launches on its path's main run, error against the plain
+version, time, plain time, bound, library time; beside K9 the time of the
+nnz-split fix-up that follows it) and the card's name and power limit.  The last line is
 ``{"ok": true, "device": {...}}``.  Any failing phase, a missing card or a
 kernel that does not build ends the run with a non-zero exit code; nothing
 falls back to the CPU or to a plain version.
@@ -734,6 +743,16 @@ def phase_env():
     return card
 
 
+def phase_calibration(card):
+    """The cost model's denominators, measured on the card once for the
+    process (a 1 GiB device-to-device copy, back-to-back launches)."""
+    from repro_torch.roofline import cost_model
+    t0 = time.perf_counter()
+    den = cost_model.calibrate("cuda")
+    emit("calibration", card=card, seconds=round(time.perf_counter() - t0, 3),
+         **den.to_dict())
+
+
 def phase_build(verbose: bool):
     from repro_torch.kernels import _build
     info = _build.build(verbose=verbose)
@@ -1418,12 +1437,16 @@ def _slot_order_check_s(pack) -> float:
 
 def phase_path_kernels(work: Workload, eng, spec, launches):
     """Each kernel of one path at the shapes its main run gave it: against
-    its plain version, timed, beside its bound and one library call."""
+    its plain version, timed, beside its bound and one library call.  The
+    cost model's card price of each kernel's plan (estimated from the
+    matrix's statistics, and on the built pack) goes on a ``card_pricing``
+    line of its own, keyed by kernel name: predictions, not measurements."""
     from repro_torch.core import blockell
     from repro_torch.kernels import _build
     n = work.n
     ks = 8
     rows = []
+    pricing, stats = {}, {}
     for kname, (mid, nrhs) in spec["kernels"].items():
         shape = (n,) if nrhs == 1 else (n, nrhs)
         x = torch.from_numpy(
@@ -1486,11 +1509,210 @@ def phase_path_kernels(work: Workload, eng, spec, launches):
             "shape": {"matrix": mid, "nrhs": nrhs, **_pack_report(
                 work.M[mid], pack)},
             "bytes": bytes_moved, "flops": flops, **extra})
+        pricing[kname] = _card_priced(work, eng, mid, nrhs, pack,
+                                      bytes_moved, stats)
         if kname == "nnzsplit_spmv_stream":
             _k11_on_hub_rows(pack, x, mid, ms, max(t_bytes, t_ops))
         del x
         torch.cuda.empty_cache()
+    emit("card_pricing", path=spec["name"], kernels=pricing)
     return rows
+
+
+def _card_priced(work: Workload, eng, mid, nrhs, pack, bytes_moved,
+                 stats):
+    """The cost model's card price of the plan a kernel ran under, from the
+    matrix's statistics (memoized in ``stats``) and on the built pack,
+    beside the bound's bytes.  The pack's kernel bytes must equal the
+    bound's (``bytes_moved``, counted without the cost model)."""
+    from repro_torch.core import tuner
+    from repro_torch.roofline import cost_model
+    den = cost_model.calibrate("cuda")
+    check(cost_model.pack_kernel_bytes(pack, nrhs) == bytes_moved,
+          f"{mid}: cost_model.pack_kernel_bytes "
+          f"{cost_model.pack_kernel_bytes(pack, nrhs)} != the bound's "
+          f"{bytes_moved}")
+    plan = dataclasses.replace(eng.executor(mid).op.plan, nrhs=nrhs)
+    if mid not in stats:
+        stats[mid] = tuner.stats_of(work.M[mid])
+    priced = cost_model.card_plan_cost(stats[mid], plan, den)
+    on_pack = cost_model.card_plan_cost(
+        stats[mid], plan, den, geometry=cost_model.pack_geometry(pack))
+    check(on_pack.kernel_bytes == bytes_moved,
+          f"{mid}: card pricing's kernel bytes on the pack "
+          f"{on_pack.kernel_bytes} != the bound's {bytes_moved}")
+    return {"plan": plan.key(), "bound_bytes": bytes_moved,
+            "bytes": priced.bytes,
+            "ratio_to_bound_bytes": priced.bytes / bytes_moved,
+            "layout_bytes": priced.layout_bytes,
+            "accumulation_bytes": priced.accumulation_bytes,
+            "launches": priced.launches,
+            "predicted_ms": priced.predicted_s * 1e3,
+            "on_pack_bytes": on_pack.bytes,
+            "on_pack_ratio_to_bound_bytes": on_pack.bytes / bytes_moved}
+
+
+# the matrix of each path that this slice's tune phase tunes
+TUNED = {"kernel": "fem_ns", "flat": "skew_ns"}
+MEASURE = {"warmup": 1, "repeats": 3}      # tuner.tune's defaults
+
+
+def _kernel_of(plan) -> str:
+    """The kernel a plan's product launches: K1-K12 by path, width and
+    variant ('kernel' names the rectangular grid's blockell_* kernels)."""
+    grid = "blockell" if plan.path == "kernel" else plan.path
+    width = "spmv" if plan.nrhs == 1 else "spmm"
+    return f"{grid}_{width}_{plan.variant}"
+
+
+def phase_tune(work: Workload, spec):
+    """This slice's path: measured tuning of the path's non-symmetric
+    matrix at full width.  A fresh ``SpmvServingEngine(autotune=True,
+    serve_nrhs=8)`` registers it (``tuner.tune`` at nrhs_options (1, 8),
+    predict-then-measure with card pricing); the winner serves a wave of
+    11 requests and one request, checked as ``phase_serve`` checks; the
+    heuristic plan at one column and at the serve width is timed by the
+    tuner's timer on the tuner's inputs (or read from the tuner's timings),
+    and the winner's time per column must be within 1.05x of both; a
+    second engine on the same cache registers the matrix with zero
+    measurements and zero packs.  Launch counts are this phase's own."""
+    from repro_torch import obs
+    from repro_torch.core import tuner
+    from repro_torch.core.paths import BUILD_COUNTS
+    from repro_torch.device import time_fn
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ops import SpmvOperator
+    from repro_torch.serve import SpmvServingEngine
+
+    mid = TUNED[spec["name"]]
+    M, n = work.M[mid], work.n
+    t_phase = time.perf_counter()
+    stats = tuner.stats_of(M)
+    pool = {p.key(): p for p in tuner.enumerate_plans(stats,
+                                                      nrhs_options=(1, 8))}
+    cache = tuner.PlanCache()
+    _build.reset_launch_counts()           # this phase's run starts here
+    obs.clear_trace()
+    snap = obs.snapshot()
+    t0 = time.perf_counter()
+    eng = SpmvServingEngine(cache=cache, autotune=True, serve_nrhs=8)
+    plan = eng.register(mid, M)
+    register_s = time.perf_counter() - t0
+    spans = {}
+    for rec in obs.trace():
+        if rec["name"] in ("tune.pack", "tune.measure"):
+            spans[rec["name"]] = spans.get(rec["name"], 0.0) + rec[
+                "duration_s"]
+    entry = cache.entries[tuner.fingerprint(M)]
+    timings = {k: v / 1e6 for k, v in entry["timings_us"].items()}
+    predicted = {k: v / 1e6 for k, v in entry["predicted_us"].items()}
+    check(obs.snapshot().diff(snap).total(
+        "tuner_candidates_measured_total") == len(timings) > 0,
+        f"{mid}: measured count off the cache entry")
+    check(set(predicted) == set(pool) and set(timings) <= set(pool),
+          f"{mid}: priced pool differs from enumerate_plans")
+    variants = {pool[k].variant for k in timings
+                if pool[k].path in ("kernel", "flat", "nnzsplit")}
+    check(variants == {"stream", "onehot"},
+          f"{mid}: measured variants {variants}, need a stream and a "
+          "one-hot plan")
+    winner_col = timings[plan.key()] / plan.nrhs
+
+    # the heuristic plan at one column and at the serve width, by the same
+    # timer on the tuner's inputs: read from the tuner's timings where it
+    # measured them, else timed here on one build
+    heur = tuner.heuristic_plan(stats)
+    heuristic = {}
+    op = None
+    for width in (1, 8):
+        hp = dataclasses.replace(heur, nrhs=width)
+        if hp.key() in timings:
+            secs, by_tune = timings[hp.key()], True
+        else:
+            if op is None:
+                op = SpmvOperator.from_plan(M, heur)
+            shape = (M.m,) if width == 1 else (M.m, width)
+            x = torch.from_numpy(np.random.default_rng(
+                0 if width == 1 else width).standard_normal(shape).astype(
+                    np.float32)).cuda()
+            secs, by_tune = time_fn(op, x, **MEASURE), False
+            del x
+        heuristic[f"r{width}"] = {"plan": hp.key(),
+                                  "s_per_column": secs / width,
+                                  "measured_by_tune": by_tune}
+    del op
+    torch.cuda.empty_cache()
+    for width in ("r1", "r8"):
+        heur_col = heuristic[width]["s_per_column"]
+        check(winner_col <= 1.05 * heur_col,
+              f"{mid}: tuned {plan.key()} {winner_col} s a column, "
+              f"heuristic {heuristic[width]['plan']} {heur_col} s")
+    one_col = timings.get(dataclasses.replace(plan, nrhs=1).key())
+
+    # the tuned plan serves: a wave of 11 (one SpMM), then one request
+    segment = SpmvOperator(M, path="segment")
+    abs_op = SpmvOperator(csrc_abs(n, *work.arrays[mid]), path="segment")
+    waves = []
+    for per in (11, 1):
+        xs = [work.rng.standard_normal(n, dtype=np.float32)
+              for _ in range(per)]
+        uids = [eng.submit(mid, x) for x in xs]
+        t0 = time.perf_counter()
+        out = eng.run_until_drained()
+        tick_s = time.perf_counter() - t0
+        check(all(out[u].batched == per and out[u].plan_key == plan.key()
+                  for u in uids), f"{mid}: tuned wave metadata wrong")
+        Y = np.stack([np.asarray(out[u]) for u in uids], axis=1)
+        errs = work.check_answers(work.csr[mid], np.stack(xs, axis=1), Y,
+                                  segment, abs_op,
+                                  f"tuned {mid} B={per}")
+        waves.append({"requests": per, "tick_s": round(tick_s, 4),
+                      "execute_s": out[uids[0]].timings["execute_s"],
+                      "err_vs_float64": errs[0],
+                      "err_vs_segment": errs[1]})
+    del segment, abs_op
+
+    # a second engine on the same cache: no measurement, no pack
+    before = dict(BUILD_COUNTS.items())
+    snap = obs.snapshot()
+    t0 = time.perf_counter()
+    eng2 = SpmvServingEngine(cache=cache, autotune=True, serve_nrhs=8)
+    plan2 = eng2.register(mid, M)
+    second_s = time.perf_counter() - t0
+    measured2 = obs.snapshot().diff(snap).total(
+        "tuner_candidates_measured_total")
+    builds = {k: v - before.get(k, 0) for k, v in BUILD_COUNTS.items()
+              if v != before.get(k, 0)}
+    check(plan2 == plan and measured2 == 0 and not builds,
+          f"{mid}: second engine measured {measured2}, built {builds}")
+    counts = _build.launch_counts()        # ... and ends here
+    for key in timings:
+        if pool[key].path in ("kernel", "flat", "nnzsplit"):
+            name = _kernel_of(pool[key])
+            check(counts[name] > 0, f"{mid}: {key} was measured but "
+                  f"{name} never launched")
+    emit("tune", matrix=mid, path=spec["name"], n=n, nnz=int(M.nnz),
+         pool=len(predicted), measured=len(timings),
+         timings_s={k: {"measured_s": t, "predicted_s": predicted[k]}
+                    for k, t in timings.items()},
+         pack_s=round(spans.get("tune.pack", 0.0), 3),
+         measure_s=round(spans.get("tune.measure", 0.0), 3),
+         register_s=round(register_s, 3), winner=plan.key(),
+         winner_s_per_column=winner_col,
+         winner_one_column_s=one_col, heuristic=heuristic,
+         # the tuner's gain at the serve width (plan choice alone), and
+         # against one column (batching plus plan choice)
+         gain_at_serve_width=heuristic["r8"]["s_per_column"] / winner_col,
+         gain_over_one_column=heuristic["r1"]["s_per_column"] / winner_col,
+         roofline_fraction=entry.get("roofline_fraction"),
+         denominators=entry["denominators"], waves=waves,
+         second_engine={"register_s": round(second_s, 3),
+                        "measurements": measured2, "builds": builds},
+         launches={k: v for k, v in counts.items() if v},
+         seconds=round(time.perf_counter() - t_phase, 3))
+    del eng, eng2
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _k11_on_hub_rows(pack, x, mid, k9_ms, bound_ms):
@@ -1775,7 +1997,8 @@ def phase_assembly(seed: int, cubes):
         check(not tuned.cached and {k.split("/")[0] for k in
                                      tuned.timings_s} == {"colored",
                                                           "sorted",
-                                                          "private"},
+                                                          "private"}
+              and "colored/onehot" in tuned.timings_s,
               f"tune_assembly measured {sorted(tuned.timings_s)}")
         want0 = assembly_oracle(sched, ke0)
         strategies = {}
@@ -2003,6 +2226,7 @@ def main() -> int:
     card = phase_env()
     phase_build(args.verbose_build)
     phase_kernels(args.seed)
+    phase_calibration(card)
 
     launches = {}
     rows = []
@@ -2021,6 +2245,8 @@ def main() -> int:
         emit("main_path", path=spec["name"], launches=counts,
              seconds=round(time.perf_counter() - t0, 3))
         rows += phase_path_kernels(work, eng, spec, launches)
+        if spec["name"] in TUNED:
+            phase_tune(work, spec)
         del eng, work
         gc.collect()
         torch.cuda.empty_cache()

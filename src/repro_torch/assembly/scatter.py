@@ -44,7 +44,7 @@ import hashlib
 import json
 import os
 import time
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -706,40 +706,29 @@ def _scatter_fn(sched: AssemblySchedule, strategy: str, variant: str):
 
 def _time_scatter(fn, k: torch.Tensor, warmup: int = 2,
                   repeats: int = 5) -> float:
-    """Median seconds of ``fn(k)``: CUDA events around each call on the
-    card, the host clock on the CPU."""
-    for _ in range(warmup):
-        fn(k)
-    ts: List[float] = []
-    for _ in range(repeats):
-        if k.is_cuda:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn(k)
-            end.record()
-            end.synchronize()
-            ts.append(start.elapsed_time(end) / 1e3)
-        else:
-            t0 = time.perf_counter()
-            fn(k)
-            ts.append(time.perf_counter() - t0)
-    return float(np.median(ts))
+    """Median seconds of ``fn(k)`` by the tuners' timer
+    (``device.time_fn``): CUDA events around each call on the card, the
+    host clock on the CPU."""
+    return device_mod.time_fn(fn, k, warmup=warmup, repeats=repeats)
 
 
 def tune_assembly(sched: AssemblySchedule, ke, cache=None,
                   measure=None, repeats: int = 5,
                   force: bool = False, device=None) -> AssemblyTuneResult:
     """Pick the assembly (strategy, variant) for this schedule: price the
-    whole candidate pool with the roofline model, measure the cheapest
-    half (plus each strategy's best-predicted variant, so no family is
-    pruned unseen), argmin, and record predicted-vs-measured provenance.
+    whole candidate pool with the cost model's card pricing
+    (``cost_model.rank_card_assembly_candidates``, denominators from
+    ``calibrate(device)``), measure the cheapest half (plus each
+    strategy's best-predicted variant, so no family is pruned unseen) with
+    ``device.time_fn``, argmin, and record predicted-vs-measured
+    provenance with the denominators priced with.
 
     The winner persists in the PlanCache under ``asmplan-<schedule key>``
-    (the JAX package's record) — a later call with the same cache returns
-    it without timing anything.  ``measure(fn, ke)`` is injectable for
-    deterministic tests; ``ke`` reaches it as a float32 tensor on
-    ``device`` (default the card)."""
+    (the JAX package's record, plus a ``denominators`` field it does not
+    read) — a later call with the same cache returns it without timing
+    anything.  ``measure(fn, ke)`` is injectable for deterministic tests;
+    ``ke`` reaches it as a float32 tensor on ``device`` (default the
+    card)."""
     from repro_torch.roofline import cost_model
 
     plan_key = "asmplan-" + sched.key()
@@ -753,8 +742,10 @@ def tune_assembly(sched: AssemblySchedule, ke, cache=None,
                 roofline_fraction=dict(hit.get("roofline_fraction", {})),
                 cached=True)
 
-    priced = cost_model.rank_assembly_candidates(sched,
-                                                 ASSEMBLY_CANDIDATES)
+    dev = device_mod.resolve(device)
+    den = cost_model.calibrate(dev)
+    priced = cost_model.rank_card_assembly_candidates(
+        sched, ASSEMBLY_CANDIDATES, den)
     predictions = {f"{s}/{v}": est.predicted_s for (s, v), est in priced}
     ests = {f"{s}/{v}": est for (s, v), est in priced}
     obs.counter("assembly_tuner_candidates_total",
@@ -768,7 +759,7 @@ def tune_assembly(sched: AssemblySchedule, ke, cache=None,
             chosen.append((s, v))
             seen_strategies.add(s)
 
-    k = _contributions(sched, ke, device_mod.resolve(device))
+    k = _contributions(sched, ke, dev)
     timings: Dict[str, float] = {}
     for s, v in chosen:
         fn = _scatter_fn(sched, s, v)
@@ -793,5 +784,6 @@ def tune_assembly(sched: AssemblySchedule, ke, cache=None,
         cache.put_assembly_plan(plan_key, {
             "strategy": ws, "variant": wv, "timings_s": timings,
             "predictions_s": predictions,
-            "roofline_fraction": fractions})
+            "roofline_fraction": fractions,
+            "denominators": den.to_dict()})
     return result

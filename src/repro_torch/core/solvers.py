@@ -128,13 +128,16 @@ def cg_solve(M, b: torch.Tensor, *, plan=None, cache=None,
              autotune: bool = False, device=None,
              x0: Optional[torch.Tensor] = None, tol: float = 1e-6,
              maxiter: int = 1000,
-             precondition: bool = True) -> Tuple[SolveResult, object]:
+             precondition: bool = True,
+             **tune_kw) -> Tuple[SolveResult, object]:
     """Matrix-level CG: builds the SpMV operator through the plan/tuner
     subsystem instead of a hard-coded path.
 
     Resolution order: an explicit ``plan`` wins; else the plan cache /
-    heuristic (a cache hit skips everything, including the schedule
-    artifact — no re-pack).  ``b`` of shape (n, r) runs block CG through
+    tuner (``autotune=True`` measures candidates on ``device`` with
+    ``tune_kw`` passed to ``tuner.tune``, ``False`` uses the
+    measurement-free heuristic; either way a cache hit skips everything,
+    including the schedule artifact — no re-pack).  ``b`` of shape (n, r) runs block CG through
     one batched SpMM per iteration.  ``b`` and ``x0`` are moved to
     ``device`` (default: the card).  Returns ``(SolveResult, operator)`` —
     the operator exposes the concrete plan it ran as ``op.plan`` and the
@@ -144,7 +147,10 @@ def cg_solve(M, b: torch.Tensor, *, plan=None, cache=None,
     from repro_torch.kernels.ops import SpmvOperator
 
     if plan is None:
-        plan = _tuner.plan_for(M, cache=cache, autotune=autotune)
+        if autotune:
+            tune_kw["device"] = device
+        plan = _tuner.plan_for(M, cache=cache, autotune=autotune,
+                               **tune_kw)
     op = SpmvOperator.from_plan(M, plan, device=device, cache=cache)
     b = b.to(op.device)
     res = cg(op, b, x0=None if x0 is None else x0.to(op.device), tol=tol,

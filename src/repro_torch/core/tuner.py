@@ -1,15 +1,21 @@
-"""Plan resolution: matrix statistics, fingerprints, the heuristic plan and
-the plan cache.
+"""Autotuner: measure feasible ExecutionPlans per matrix, cache the argmin.
 
 This is the paper's per-matrix strategy-selection problem (§4: which
-strategy wins depends on the matrix).  This package holds the part of the
-tuner the main path needs:
+strategy wins depends on the matrix) solved the way RACE (arXiv:1907.06487)
+and Bergmans et al. (arXiv:2502.19284) do it: enumerate feasible
+candidates from matrix statistics, price them, *measure* the cheapest on
+the device, and remember the winner.
 
   MatrixStats / stats_of     the statistics that gate candidates
                              (bandwidth, nnz/row deviation, working set,
                              numeric symmetry)
   fingerprint                stable string key of a matrix *class*
                              (n, m, k, bandwidth, nnz-histogram digest)
+  enumerate_plans            feasible candidates from stats, one
+                             enumerator per registered KernelPath
+                             (core/paths.py), plus the
+                             @register_candidate_source hook — the JAX
+                             package's list, plan for plan and in order
   heuristic_plan             measurement-free default: ``kernel`` if the
                              window fits, else ``segment``, plus the
                              analytic distributed fields
@@ -19,12 +25,21 @@ tuner the main path needs:
                              the file formats are the JAX package's, so
                              caches written by either package load in the
                              other
-  plan_for                   the entry point used by solvers and the serve
-                             engine
+  tune / plan_for            the tuning entry points used by solvers, the
+                             serve engine and chip_smoke.py
 
-Measured tuning (``tune``, ``enumerate_plans``) and the mesh-aware mode
-(``tune_mesh``, ``mesh_plan_for``) are not in this package yet:
-``plan_for(autotune=True)`` raises ``NotImplementedError``.
+``tune`` ranks the pool with the cost model's card pricing
+(``roofline.cost_model.rank_card_plans``, denominators measured on the
+device by ``calibrate``), measures the cheapest plans on the device with
+``device.time_fn`` and stores the winner's schedule next to its plan.  The
+mesh-aware mode (``mesh_ps``, ``tune_mesh``) needs the mesh layer, which
+is not in this package yet: a non-empty ``mesh_ps`` raises
+``NotImplementedError``.
+
+Windowed candidates with ``value_dtype='bfloat16'`` (enumerated only for
+numerically-symmetric matrices) additionally pass an accuracy check
+against the exact ``segment`` product on the same device before they may
+win (``VALUE_DTYPE_TOL``).
 """
 from __future__ import annotations
 
@@ -32,13 +47,16 @@ import dataclasses
 import hashlib
 import json
 import os
-from typing import Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
+import torch
 
+from repro_torch import device as device_mod
 from repro_torch import obs
+from . import paths as paths_mod
 from .csrc import CSRC, bandwidth as csrc_bandwidth, nnz_per_row
-from .plan import ExecutionPlan, kernel_window
+from .plan import ExecutionPlan, feasible, kernel_window
 
 
 # ---------------------------------------------------------------------------
@@ -94,6 +112,71 @@ def _distributed_fields(stats: MatrixStats, p_hint: int = 8):
     acc = ("halo" if stats.bandwidth <= max(8, rows_per_shard)
            else "reduce_scatter")
     return partition, acc
+
+
+# ---------------------------------------------------------------------------
+# Candidate enumeration
+# ---------------------------------------------------------------------------
+
+_CANDIDATE_SOURCES: List[Callable[[MatrixStats], List[ExecutionPlan]]] = []
+
+
+def register_candidate_source(fn):
+    """Extension hook: a function ``stats -> [ExecutionPlan, ...]`` whose
+    (feasible) plans join every enumeration and therefore every tuning
+    run."""
+    _CANDIDATE_SOURCES.append(fn)
+    return fn
+
+
+def enumerate_plans(stats: MatrixStats,
+                    tms=(32, 128),
+                    k_steps_sublanes=(8,),
+                    w_cap: int = 4096,
+                    colorful_max_n: int = 2048,
+                    p_hint: int = 8,
+                    nrhs_options=(1,),
+                    index_dtypes=("int32", "int16"),
+                    colorings=("greedy", "race")) -> List[ExecutionPlan]:
+    """All feasible candidate plans for a matrix with these statistics.
+
+    Every registered path contributes its own enumerator over the sweep
+    space (``segment`` always; ``kernel`` and, past the skew gate,
+    ``flat`` per (tm, k_step) whose window fits under ``w_cap``;
+    ``nnzsplit`` past the unstructured gate; ``colorful`` for square
+    matrices up to ``colorful_max_n`` rows), then the
+    ``@register_candidate_source`` hooks.  Every candidate is filtered
+    through its path's feasibility predicate.  ``nrhs_options`` replicates
+    every candidate per RHS block width (the serving engine's batched
+    operating point); ``index_dtypes`` and ``colorings`` bound the
+    windowed index-stream and the colorful provider proposals.  The list
+    is the JAX package's for the same statistics, in the same order.
+    """
+    partition, acc = _distributed_fields(stats, p_hint)
+    space = paths_mod.CandidateSpace(
+        tms=tuple(tms), k_steps_sublanes=tuple(k_steps_sublanes),
+        w_cap=w_cap, colorful_max_n=colorful_max_n,
+        partition=partition, accumulation=acc,
+        index_dtypes=tuple(index_dtypes),
+        colorings=tuple(colorings))
+    raw: List[ExecutionPlan] = []
+    for entry in paths_mod.registered_paths():
+        raw.extend(entry.candidates(stats, space))
+    for source in _CANDIDATE_SOURCES:
+        raw.extend(source(stats))
+    plans = [p for p in raw
+             if feasible(p, n=stats.n, m=stats.m, bandwidth=stats.bandwidth)]
+    if tuple(nrhs_options) != (1,):
+        plans = [dataclasses.replace(p, nrhs=r)
+                 for p in plans for r in nrhs_options]
+    # dedup on the full plan (frozen dataclass), preserving order — key()
+    # elides execution-irrelevant fields and must not drop distinct plans
+    seen, out = set(), []
+    for p in plans:
+        if p not in seen:
+            seen.add(p)
+            out.append(p)
+    return out
 
 
 def heuristic_plan(stats: MatrixStats, tm: int = 128,
@@ -201,16 +284,21 @@ class PlanCache:
     def put(self, fp: str, plan: ExecutionPlan,
             timings_s: Optional[Dict[str, float]] = None,
             predictions_s: Optional[Dict[str, float]] = None,
-            roofline: Optional[Dict[str, float]] = None):
+            roofline: Optional[Dict[str, float]] = None,
+            denominators: Optional[Dict[str, object]] = None):
         """``predictions_s`` (plan key -> analytic seconds) and
         ``roofline`` ({'predicted_ms', 'measured_ms', 'roofline_fraction'}
         of the winner) are the predict-then-measure provenance: the cache
         records what the cost model claimed next to what the clock said —
         and ``env`` records which torch/device/git environment measured it
-        (obs.environment_provenance)."""
+        (obs.environment_provenance), ``denominators`` what the
+        predictions were priced with (``cost_model.Denominators``; a field
+        the JAX package does not read)."""
         entry: Dict = {"plan": plan.to_dict(),
                        "measured": bool(timings_s),
                        "env": dict(obs.environment_provenance())}
+        if denominators:
+            entry["denominators"] = dict(denominators)
         if timings_s:
             entry["timings_us"] = {k: round(v * 1e6, 3)
                                    for k, v in timings_s.items()}
@@ -381,20 +469,319 @@ class PlanCache:
         return len(self.entries)
 
 
+# ---------------------------------------------------------------------------
+# Tuning
+# ---------------------------------------------------------------------------
+
+# Max relative error a reduced-precision (value_dtype != 'float32')
+# candidate may show against the exact segment-sum product before the
+# tuner rejects it — the accuracy gate of the bf16 value-stream trade.
+VALUE_DTYPE_TOL = 2e-2
+
+
+def _rhs_pool(M: CSRC, x, device):
+    """Measurement inputs per RHS block width on ``device``: the JAX
+    package's seeds (``default_rng(0)`` for x, ``default_rng(nrhs)`` per
+    width), made with numpy and memoized per width."""
+    if x is None:
+        x = np.random.default_rng(0).standard_normal(M.m).astype(np.float32)
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.asarray(x, dtype=np.float32))
+    xt = x.to(device=device, dtype=torch.float32)
+    by_width = {1: xt} if xt.ndim == 1 else {xt.shape[1]: xt, 1: xt[:, 0]}
+
+    def x_for(nrhs: int):
+        if nrhs not in by_width:
+            by_width[nrhs] = torch.from_numpy(
+                np.random.default_rng(nrhs).standard_normal(
+                    (M.m, nrhs)).astype(np.float32)).to(device)
+        return by_width[nrhs]
+
+    return x_for
+
+
+@dataclasses.dataclass(frozen=True)
+class TuneResult:
+    plan: ExecutionPlan
+    fingerprint: str
+    timings_s: Dict[str, float]   # plan.key() -> seconds; empty on cache hit
+    cached: bool
+    # per-p distributed winners of the mesh-aware mode (always empty here:
+    # it needs the mesh layer)
+    mesh_plans: Dict[int, ExecutionPlan] = dataclasses.field(
+        default_factory=dict)
+    # predict-then-measure provenance: plan.key() -> card-priced seconds
+    # for every ranked candidate (superset of timings_s keys when pruning
+    # ran), and the winner's achieved-roofline fraction
+    predictions_s: Dict[str, float] = dataclasses.field(
+        default_factory=dict)
+    roofline_fraction: Optional[float] = None
+
+
+# Per-column times within this fraction of the best are level: the card's
+# run-to-run spread of one kernel, within which the measurement cannot
+# order two plans.
+LEVEL_TOL = 0.03
+
+
+def _measured_set(ranked, measure_top_k: Optional[int]):
+    """The predict-then-measure cut over price groups ranked cheapest-first
+    (``(plans, estimate)`` pairs; a group is the plans of one schedule
+    artifact and RHS width, such as a stream plan and its one-hot twin,
+    which card pricing prices alike): whole groups while they fit in
+    ``measure_top_k`` plans (default max(3, a quarter of the pool)), at
+    least the first, plus each path's best-predicted group, so that no path
+    is pruned unseen."""
+    n_plans = sum(len(g) for g, _ in ranked)
+    k_top = min(n_plans, max(2, measure_top_k if measure_top_k
+                             else max(3, n_plans // 4)))
+    chosen, count = [], 0
+    for g, _ in ranked:
+        if chosen and count + len(g) > k_top:
+            break
+        chosen.append(g)
+        count += len(g)
+    seen_paths = {g[0].path for g in chosen}
+    for g, _ in ranked:
+        if g[0].path not in seen_paths:
+            chosen.append(g)
+            seen_paths.add(g[0].path)
+    return [p for g in chosen for p in g]
+
+
+def tune(M: CSRC,
+         cache: Optional[PlanCache] = None,
+         x=None,
+         candidates: Optional[List[ExecutionPlan]] = None,
+         measure: Optional[Callable] = None,
+         warmup: int = 1,
+         repeats: int = 3,
+         device=None,
+         save: bool = True,
+         value_dtype_tol: float = VALUE_DTYPE_TOL,
+         predict: bool = True,
+         measure_top_k: Optional[int] = None,
+         nrhs_options=(1,),
+         mesh_ps=()) -> TuneResult:
+    """Rank candidates by card pricing, measure the cheapest on ``device``
+    (default the card) and return the argmin plan.
+
+    ``cache`` short-circuits: a measured fingerprint hit returns the stored
+    plan with zero measurements (a heuristic entry does not count).
+    ``measure(op, x) -> seconds`` is injectable for tests; the default is
+    ``device.time_fn`` with ``warmup`` / ``repeats`` (CUDA events on the
+    card).
+
+    ``predict=True`` (default) prices every feasible candidate with
+    ``cost_model.rank_card_plans``, once per group of plans sharing a
+    schedule artifact and RHS width (no packing, no timing), and measures
+    only the cheapest groups (:func:`_measured_set`).  When the winner is
+    wider than one column, the one-column twins of its artifact are then
+    timed on its schedule (they serve single requests) and join the
+    argmin; variants of the winner's artifact and width whose per-column
+    times are level with it (``LEVEL_TOL``) are ordered by their
+    one-column twins' times.  The cache entry records ``predicted_us`` per
+    ranked candidate, the winner's ``predicted_ms`` / ``measured_ms`` /
+    ``roofline_fraction`` and the ``denominators`` priced with.
+    ``predict=False`` measures the full pool and returns its per-column
+    argmin, as the JAX package does.
+
+    Candidates sharing a schedule artifact (``schedule.plan_artifact_
+    fields``: plans that differ only in variant, RHS width or
+    accumulation) are measured one after the other on one build of it
+    (span ``tune.pack``), bound to the device once (binding and measuring
+    under span ``tune.measure``); equal times go to the plan earlier in the
+    measured list (ranked order, or enumeration order when
+    ``predict=False``), as if the list had been measured in order.  Only the schedule of
+    the best plan so far is kept besides the one being measured, and no
+    losing operator outlives its measurement.
+
+    Candidates with a reduced ``value_dtype`` must first match the exact
+    ``segment`` product within ``value_dtype_tol`` relative error.
+    ``nrhs_options`` replicates every candidate per RHS block width; the
+    argmin is on per-column time.  ``mesh_ps`` (the mesh-aware mode)
+    raises ``NotImplementedError`` until the mesh layer is ported.
+    """
+    if mesh_ps:
+        raise NotImplementedError(
+            "mesh-aware tuning (mesh_ps) needs the mesh layer of the port "
+            "(ROADMAP A15); tune locally with mesh_ps=()")
+    from repro_torch.kernels import ref as ref_mod
+    from repro_torch.kernels.ops import SpmvOperator
+    from repro_torch.roofline import cost_model
+    from . import schedule as schedule_mod
+
+    dev = device_mod.resolve(device)
+    fp = fingerprint(M)
+    if cache is not None:
+        # a heuristic (unmeasured) entry must not satisfy a tune request
+        hit = cache.get(fp, require_measured=True)
+        if hit is not None:
+            return TuneResult(plan=hit, fingerprint=fp, timings_s={},
+                              cached=True)
+
+    stats = stats_of(M)
+    cands = (candidates if candidates is not None
+             else enumerate_plans(stats, nrhs_options=tuple(nrhs_options)))
+    if measure is None:
+        def measure(op, xv):
+            return device_mod.time_fn(op, xv, warmup=warmup,
+                                      repeats=repeats)
+    x_for = _rhs_pool(M, x, dev)
+    M_dev = M.to(dev)
+    y_ref_by_width: Dict[int, torch.Tensor] = {}
+
+    def accuracy_ok(op, nrhs: int) -> bool:
+        """Reduced-precision gate against the exact segment product."""
+        xv = x_for(nrhs)
+        if nrhs not in y_ref_by_width:
+            y_ref_by_width[nrhs] = (ref_mod.csrc_spmm(M_dev, xv)
+                                    if xv.ndim == 2
+                                    else ref_mod.csrc_spmv(M_dev, xv)
+                                    ).double()
+        y_ref = y_ref_by_width[nrhs]
+        err = float((op(xv).double() - y_ref).abs().max())
+        scale = max(1.0, float(y_ref.abs().max()))
+        return err / scale <= value_dtype_tol
+
+    pool = [p for p in cands
+            if feasible(p, n=M.n, m=M.m, bandwidth=stats.bandwidth)]
+    feasible_pool = pool
+    obs.counter("tuner_candidates_enumerated_total").inc(len(pool))
+    predictions: Dict[str, float] = {}
+    est_by_key: Dict[str, object] = {}
+    den = None
+    if predict and pool:
+        den = cost_model.calibrate(dev)
+        # one price per group of plans sharing an artifact and a width
+        price_groups: Dict[tuple, List[ExecutionPlan]] = {}
+        for p in pool:
+            price_groups.setdefault(
+                (schedule_mod.plan_artifact_fields(p), p.nrhs), []).append(p)
+        group_of = {g[0].key(): g for g in price_groups.values()}
+        ranked = [(group_of[p.key()], e)
+                  for p, e in cost_model.rank_card_plans(
+                      stats, [g[0] for g in group_of.values()], den)]
+        est_by_key = {q.key(): e for g, e in ranked for q in g}
+        predictions = {k: e.predicted_s for k, e in est_by_key.items()}
+        measured = _measured_set(ranked, measure_top_k)
+        pruned = len(pool) - len(measured)
+        obs.counter("tuner_candidates_pruned_total").inc(pruned)
+        # predict-then-measure savings: fraction of the feasible pool the
+        # ranking removed from the clock
+        obs.gauge("tuner_predict_measure_savings").set(pruned / len(pool))
+        pool = measured
+
+    timings: Dict[str, float] = {}
+
+    def measure_plan(p: ExecutionPlan, bound) -> Optional[float]:
+        """Seconds of ``p`` on a bound schedule, None when the precision
+        trade fails the accuracy gate."""
+        with obs.span("tune.measure", plan=p.key()):
+            op = SpmvOperator.from_plan(M_dev, p, device=dev,
+                                        schedule=bound)
+            ok = p.value_dtype == "float32" or accuracy_ok(op, p.nrhs)
+            t = float(measure(op, x_for(p.nrhs))) if ok else None
+            del op
+        if t is not None:
+            obs.counter("tuner_candidates_measured_total").inc()
+            timings[p.key()] = t
+        return t
+
+    # one build (and one upload) per schedule artifact
+    groups: Dict[tuple, List[int]] = {}
+    for i, p in enumerate(pool):
+        groups.setdefault(schedule_mod.plan_artifact_fields(p), []).append(i)
+    best = None                    # (per-column seconds, pool index)
+    best_sched = None
+    for members in groups.values():
+        try:
+            with obs.span("tune.pack", plan=pool[members[0]].key()):
+                sched = schedule_mod.build_schedule(M, pool[members[0]])
+        except ValueError:
+            continue              # pack-time infeasibility (bandwidth gate)
+        bound = sched.to(dev)
+        for i in members:
+            t = measure_plan(pool[i], bound)
+            # argmin on per-RHS-column time: an nrhs=8 candidate does 8x
+            # the work of a single product; equal times keep pool order
+            if t is not None and (best is None
+                                  or (t / pool[i].nrhs, i) < best):
+                best, best_sched = (t / pool[i].nrhs, i), sched
+        del bound, sched
+    if best is None:
+        raise ValueError("no feasible execution plan for this matrix")
+
+    if predict and pool[best[1]].nrhs > 1:
+        # the winner's one-column twins, on its schedule: they join the
+        # argmin, and order the variants level with the winner
+        art = schedule_mod.plan_artifact_fields(pool[best[1]])
+        twins = [p for p in feasible_pool if p.nrhs == 1
+                 and p.key() not in timings
+                 and schedule_mod.plan_artifact_fields(p) == art]
+        if twins:
+            bound = best_sched.to(dev)
+            for p in twins:
+                pool.append(p)
+                t = measure_plan(p, bound)
+                if t is not None and (t, len(pool) - 1) < best:
+                    best = (t, len(pool) - 1)
+            del bound
+        width = pool[best[1]].nrhs
+        level = [i for i, p in enumerate(pool)
+                 if p.nrhs == width and p.key() in timings
+                 and schedule_mod.plan_artifact_fields(p) == art
+                 and timings[p.key()] / width <= best[0] * (1 + LEVEL_TOL)]
+
+        def one_column_s(i):
+            twin = dataclasses.replace(pool[i], nrhs=1).key()
+            return timings.get(twin, float("inf"))
+
+        best = (best[0], min(level, key=lambda i: (one_column_s(i), i)))
+    best_plan = pool[best[1]]
+    best_raw = timings[best_plan.key()]
+
+    roofline_entry: Optional[Dict[str, float]] = None
+    winner_frac: Optional[float] = None
+    est = est_by_key.get(best_plan.key())
+    if est is not None and best_raw:
+        winner_frac = est.predicted_s / best_raw
+        obs.gauge("tuner_winner_roofline_fraction",
+                  path=best_plan.path).set(winner_frac)
+        roofline_entry = {
+            "predicted_ms": round(est.predicted_s * 1e3, 6),
+            "measured_ms": round(best_raw * 1e3, 6),
+            "roofline_fraction": winner_frac,
+        }
+    if cache is not None:
+        cache.put(fp, best_plan, timings, predictions_s=predictions,
+                  roofline=roofline_entry,
+                  denominators=None if den is None else den.to_dict())
+        # the winner's schedule next to its plan: serving processes that
+        # construct this (matrix, plan) never re-pack or re-color
+        cache.put_schedule(best_sched)
+        if save and cache.path is not None:
+            cache.save()
+    return TuneResult(plan=best_plan, fingerprint=fp, timings_s=timings,
+                      cached=False, predictions_s=predictions,
+                      roofline_fraction=winner_frac)
+
+
 def plan_for(M: CSRC,
              cache: Optional[PlanCache] = None,
-             autotune: bool = False) -> ExecutionPlan:
+             autotune: bool = False,
+             **tune_kw) -> ExecutionPlan:
     """The plan to run this matrix with.
 
-    Cache hit wins; otherwise the measurement-free heuristic decides (and
-    is cached, so the decision is stable across calls).  ``autotune=True``
-    raises until measured tuning is ported.
+    Cache hit wins; otherwise ``autotune=True`` measures (``tune``, with
+    ``tune_kw`` such as ``device=`` or ``nrhs_options=``; it fills the
+    cache), ``autotune=False`` falls back to the measurement-free
+    heuristic (still cached, so the decision is stable across calls).
     """
     if autotune:
-        raise NotImplementedError(
-            "measured tuning (tuner.tune) is not in repro_torch yet — it "
-            "arrives with the tuner / cost-model part of the port; use "
-            "autotune=False or pass an explicit plan")
+        # tune() performs the cache probe itself — probing here too would
+        # double-count misses and fingerprint twice
+        return tune(M, cache=cache, **tune_kw).plan
     fp = fingerprint(M)
     if cache is not None:
         hit = cache.get(fp)

@@ -6,12 +6,16 @@ Every entry point (``SpmvOperator``, ``spmv``, ``cg_solve``,
 default device and no quiet fallback: asking for the card on a machine
 without one raises, and only a caller that passes ``device="cpu"`` (the
 CPU test-suite does) runs the plain PyTorch versions of the kernels.
+
+``time_fn`` is the steady-state timer both tuners measure with.
 """
 from __future__ import annotations
 
 import subprocess
-from typing import Dict, Optional, Union
+import time
+from typing import Callable, Dict, Optional, Union
 
+import numpy as np
 import torch
 
 DEFAULT_DEVICE = "cuda"
@@ -74,3 +78,31 @@ def describe(device: DeviceLike = None) -> Dict[str, object]:
         return {"platform": "cpu", "kind": "cpu", "count": 1}
     return {"platform": "gpu", "kind": torch.cuda.get_device_name(dev),
             "count": torch.cuda.device_count()}
+
+
+def time_fn(fn: Callable, *args, warmup: int = 3, repeats: int = 10) -> float:
+    """Median seconds of ``fn(*args)`` after ``warmup`` untimed calls (the
+    first call binds and uploads).  When an argument is a CUDA tensor, CUDA
+    events on its device bracket each timed call and the host waits on the
+    end event, so a time is that of the finished device work; otherwise
+    the host clock times each call."""
+    dev = next((a.device for a in args
+                if isinstance(a, torch.Tensor) and a.is_cuda), None)
+    for _ in range(warmup):
+        fn(*args)
+    ts = []
+    for _ in range(repeats):
+        if dev is not None:
+            with torch.cuda.device(dev):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn(*args)
+                end.record()
+            end.synchronize()
+            ts.append(start.elapsed_time(end) / 1e3)
+        else:
+            t0 = time.perf_counter()
+            fn(*args)
+            ts.append(time.perf_counter() - t0)
+    return float(np.median(ts))

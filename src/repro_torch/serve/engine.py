@@ -64,9 +64,11 @@ class SpmvServingEngine:
     """Continuous-batching SpMV service over tuned execution plans.
 
     ``register`` resolves the matrix's plan through the shared plan cache
-    (a hit — e.g. a second matrix of an already-served class — constructs
-    the executor without re-planning; ``autotune=True`` raises until
-    measured tuning is ported) and backs it with a pluggable executor
+    (``autotune=True`` measures candidates on ``device`` on a miss, at
+    nrhs=1 and at ``serve_nrhs``, the coalesced block width the engine
+    will run — default ``min(max_batch, 8)``; a hit — e.g. a second
+    matrix of an already-served class — constructs the executor without
+    re-planning or re-measuring) and backs it with a pluggable executor
     (serve/executor.py): ``strategy='local'`` plans run the single-device
     SpmvOperator on ``device`` (default: the card), with every schedule
     artifact served from the PlanCache npz layer — re-registering a known
@@ -89,9 +91,9 @@ class SpmvServingEngine:
         self.device = device_mod.resolve(device)
         self.max_batch = max_batch
         self.mesh_p = mesh_p
-        # the batched operating point measured tuning will tune at:
-        # coalesced groups run as (n, B) SpMM blocks, so a plan must be
-        # measured at a representative B, not at nrhs=1
+        # the batched operating point autotuning tunes at: coalesced
+        # groups run as (n, B) SpMM blocks, so a plan must be measured at
+        # a representative B, not at nrhs=1
         self.serve_nrhs = (serve_nrhs if serve_nrhs is not None
                            else min(max_batch, 8))
         self._matrices: Dict[str, object] = {}
@@ -114,7 +116,8 @@ class SpmvServingEngine:
         if plan is None:
             plan = placement.resolve_plan(
                 M, cache=self.cache, autotune=self.autotune,
-                mesh_p=self.mesh_p, nrhs=self.serve_nrhs)
+                mesh_p=self.mesh_p, nrhs=self.serve_nrhs,
+                device=self.device)
         self._matrices[matrix_id] = M
         self._ops[matrix_id] = placement.build_executor(
             M, plan, cache=self.cache, device=self.device)

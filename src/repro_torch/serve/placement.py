@@ -2,12 +2,12 @@
 
 One decision point for the serving engine:
 
-* ``resolve_plan`` — the plan a matrix will run with, from the plan cache
-  or the heuristic (``tuner.plan_for``); the decision is cached, so it is
-  stable across engines and processes.  A mesh width may be requested, as
-  in the JAX package, but this package has no mesh executor yet, so the
-  request degrades to the local entries exactly as it does there when the
-  process cannot see enough devices.
+* ``resolve_plan`` — the plan a matrix will run with (``tuner.plan_for``:
+  cache hit > measured ``tune`` when autotuning > heuristic); the decision
+  is cached, so it is stable across engines and processes.  A mesh width
+  may be requested, as in the JAX package, but this package has no mesh
+  executor yet, so the request degrades to the local entries exactly as it
+  does there when the process cannot see enough devices.
 
 * ``build_executor`` — the executor for a resolved plan: a
   :class:`~repro_torch.serve.executor.LocalExecutor`; a ``strategy='mesh'``
@@ -25,13 +25,22 @@ from .executor import LocalExecutor, SpmvExecutor
 
 def resolve_plan(M: CSRC, cache=None, autotune: bool = False,
                  mesh_p: Optional[int] = None,
-                 nrhs: int = 1) -> ExecutionPlan:
-    """The plan to serve this matrix with.  ``mesh_p`` and ``nrhs`` are
-    accepted for parity with the JAX package: the mesh request degrades to
-    local, and ``nrhs`` only matters to measured tuning
-    (``autotune=True``), which raises ``NotImplementedError`` here."""
+                 nrhs: int = 1, device=None) -> ExecutionPlan:
+    """The plan to serve this matrix with.  ``mesh_p`` is accepted for
+    parity with the JAX package and degrades to local.
+
+    ``nrhs`` > 1 is the engine's batched operating point: autotuning then
+    measures every candidate at nrhs=1 *and* at that block width (argmin
+    on per-column time) on ``device`` (default the card), so the cached
+    winner is tuned for the coalesced SpMM the engine actually issues —
+    the winning ``plan.nrhs`` records the width it was tuned at."""
     from repro_torch.core import tuner
-    return tuner.plan_for(M, cache=cache, autotune=autotune)
+    if not autotune:
+        return tuner.plan_for(M, cache=cache)
+    tune_kw = {"device": device}
+    if nrhs > 1:
+        tune_kw["nrhs_options"] = (1, nrhs)
+    return tuner.plan_for(M, cache=cache, autotune=True, **tune_kw)
 
 
 def build_executor(M: CSRC, plan: ExecutionPlan, cache=None,

@@ -640,3 +640,34 @@ def test_k9_within_rowsum_tolerance_on_general_values(card, pattern):
     assert bool(torch.isfinite(got).all())
     assert bool(((got - nz.nnzsplit_partials_stream_plain(pack, x)).abs()
                  <= bound).all())
+
+
+def test_calibrate_measures_the_card(card):
+    from repro_torch.roofline import cost_model
+    den = cost_model.calibrate(card)
+    assert den.source.startswith("measured on ")
+    assert den.hbm_bw > 0 and 0 < den.launch_s < 50e-6
+    assert cost_model.calibrate("cuda") is den          # once a process
+
+
+def test_tune_on_the_card_with_the_default_timer(card):
+    """The measured tuner at a mid size (n = 40,000, the main path's band
+    shape): every measured candidate timed by CUDA events, a stream and a
+    one-hot plan among them, and the winner, served from the cache with no
+    pack, equal to the segment path bit for bit on dyadic data."""
+    from repro_torch.core import schedule, tuner
+    M, rng = _dyadic_matrix(n=40000)
+    cache = tuner.PlanCache()
+    res = tuner.tune(M, cache=cache, device=card, nrhs_options=(1, 8))
+    assert not res.cached and all(t > 0 for t in res.timings_s.values())
+    keys = list(res.timings_s)
+    assert any(":st:" in k for k in keys)
+    assert any(k.startswith("kernel") and ":st:" not in k for k in keys)
+    before = dict(schedule.BUILD_COUNTS.items())
+    op = SpmvOperator.from_plan(M, res.plan, cache=cache, device=card)
+    assert dict(schedule.BUILD_COUNTS.items()) == before
+    X = torch.from_numpy((rng.integers(-8, 9, (M.n, 8)) / 8
+                          ).astype(np.float32)).to(card)
+    want = SpmvOperator(M, path="segment", device=card)
+    assert torch.equal(op(X), want(X))
+    assert torch.equal(op(X[:, 0].contiguous()), want(X[:, 0].contiguous()))

@@ -1,0 +1,41 @@
+"""``examples/torch_assemble_tune_solve.py`` on the CPU at a small size:
+the port's assemble → tune_assembly → tune → CG pipeline end to end,
+with the same checks the reference example prints."""
+import importlib.util
+import os
+
+import pytest
+
+EXAMPLE = os.path.join(os.path.dirname(__file__), "..", "examples",
+                       "torch_assemble_tune_solve.py")
+
+
+def _example():
+    spec = importlib.util.spec_from_file_location("torch_example", EXAMPLE)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_example_assembles_tunes_and_solves_on_the_cpu(capsys):
+    out = _example().main(["--n", "8", "--steps", "2", "--device", "cpu"])
+    printed = capsys.readouterr().out
+    assert "[tune_assembly] winner=" in printed and "[step 2]" in printed
+    assert out["exact"] and not out["assembly"].cached
+    assert "colored/onehot" in out["assembly"].timings_s
+    res = out["tune"]
+    assert not res.cached and res.timings_s
+    assert set(res.timings_s) <= set(res.predictions_s)
+    assert out["solve"].converged
+    for delta, sol in out["steps"]:
+        # a value refresh per step, no structural rebuild
+        assert set(delta) <= {"value_refresh", "assembly_value_refresh"}
+        assert sol.converged
+
+
+def test_example_defaults_to_the_card():
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="cuda"):
+        _example().main(["--n", "4", "--steps", "0"])

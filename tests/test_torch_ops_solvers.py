@@ -205,6 +205,8 @@ def test_cg_solve_through_plan_and_cache():
                                  plan=stream, device="cpu")
     assert dict(tsched.BUILD_COUNTS.items()) == before   # same artifact
     assert ops_.plan.variant == "stream" and rs.iters == rt.iters
-    with pytest.raises(NotImplementedError):
-        tsolvers.cg_solve(Mt, torch.from_numpy(b), autotune=True,
-                          device="cpu")
+    # autotune=True measures on the CPU and solves with the argmin
+    rt2, opt2 = tsolvers.cg_solve(
+        Mt, torch.from_numpy(b), autotune=True, device="cpu",
+        measure=lambda op, x: 1.0 if op.plan.path == "segment" else 2.0)
+    assert opt2.plan.path == "segment" and rt2.converged

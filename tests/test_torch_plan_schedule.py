@@ -232,8 +232,21 @@ def test_plan_for_caches_heuristic_and_refuses_autotune():
     p2 = ttuner.plan_for(Mt, cache=cache)
     assert p1 == p2 and (cache.hits, cache.misses, len(cache)) == (1, 1, 1)
     assert cache.get(ttuner.fingerprint(Mt), require_measured=True) is None
-    with pytest.raises(NotImplementedError, match="tun"):
-        ttuner.plan_for(Mt, autotune=True)
+    # autotuning measures on the requested device and caches the argmin,
+    # which a heuristic entry never satisfies
+    calls = []
+
+    def measure(op, x):
+        calls.append(op.plan.key())
+        return 1.0 if op.plan.path == "segment" else 2.0
+
+    p3 = ttuner.plan_for(Mt, cache=cache, autotune=True, device="cpu",
+                         measure=measure)
+    assert p3.path == "segment" and len(calls) >= 2
+    assert cache.get(ttuner.fingerprint(Mt), require_measured=True) == p3
+    assert ttuner.plan_for(Mt, cache=cache, autotune=True, device="cpu",
+                           measure=lambda op, x: pytest.fail("re-measured")
+                           ) == p3
 
 
 def test_schedule_for_refreshes_same_structure(tmp_path):

@@ -119,8 +119,9 @@ def test_submit_validation_and_unported_modes():
     with pytest.raises(ValueError, match="shape"):
         eng.submit("a", np.zeros(M.n + 1))
     assert eng.step() == {}
-    with pytest.raises(NotImplementedError):
-        SpmvServingEngine(device="cpu", autotune=True).register("a", M)
+    # autotuning is ported: it measures at the engine's batched width
+    tuned = SpmvServingEngine(device="cpu", autotune=True).register("a", M)
+    assert tuned.nrhs in (1, 8)
     mesh = tplan.ExecutionPlan(path="segment", strategy="mesh", mesh_p=2)
     with pytest.raises(NotImplementedError, match="mesh"):
         placement.build_executor(M, mesh, device="cpu")
