@@ -32,6 +32,20 @@ deployment would call real, one after the other:
             served and solved at three time steps, and the schedule and the
             tuned strategy come back from a fresh cache with zero builds.
 
+  mesh      after the nnzsplit path, the paper's three accumulations
+            (allreduce, reduce_scatter, halo) over 8 shards emulated on the
+            card (``ShardMesh(8, "cuda")``) on the kernel path's ``fem_sym``
+            and the nnzsplit path's ``pl_sym``: shard-local ``index_add_``,
+            ``flat`` (K5-K8) and ``nnzsplit`` (K9-K12) at B = 1 and 8, each
+            against the local plan's answer and time, each product launching
+            its kernel once per shard, and each shard's kernel at these
+            shapes against its plain version; halo at p = 1, 2, 4,
+            8; serving, a value refresh and block CG through the
+            ``MeshExecutor``; ``tune_mesh`` and a second engine on its
+            cache; the process-group backend on NCCL at world size 1.  At
+            n = 40,000 first, every mesh product of K5-K12 on the card
+            equal bit for bit to the plain versions' on the CPU (dyadic).
+
 Each path's two matrices are served by one ``SpmvServingEngine`` and solved
 by ``cg_solve`` / ``bicgstab``.  After the ``kernel`` and ``flat`` paths'
 main runs, a tune phase registers their non-symmetric matrix (``fem_ns``,
@@ -53,8 +67,9 @@ model's denominators measured on the card; a ``card_pricing`` line per
 path: the cost model's price of each kernel's plan beside the bound's
 bytes).  Before the last line come one JSON object ``{"kernels": [...]}``
 (per kernel: launches on its path's main run, error against the plain
-version, time, plain time, bound, library time; beside K9 the time of the
-nnz-split fix-up that follows it) and the card's name and power limit.  The last line is
+version, time, plain time, bound, library time, launches on the mesh
+phase's main run; beside K9 the time of the nnz-split fix-up that follows
+it) and the card's name and power limit.  The last line is
 ``{"ok": true, "device": {...}}``.  Any failing phase, a missing card or a
 kernel that does not build ends the run with a non-zero exit code; nothing
 falls back to the CPU or to a plain version.
@@ -62,6 +77,7 @@ falls back to the CPU or to a plain version.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -1311,6 +1327,7 @@ def phase_serve(work: Workload, spec):
                for mid in mids}
     segment_abs = {mid: SpmvOperator(csrc_abs(work.n, *arr), path="segment")
                    for mid, arr in work.arrays.items()}
+    work.segment_abs = segment_abs        # |A| · |x|, for later bounds
 
     n = work.n
     # 24 requests over both matrices, in two waves: a wave of 11 + 11 is
@@ -1713,6 +1730,488 @@ def phase_tune(work: Workload, spec):
     del eng, eng2
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# The mesh phase: the paper's three accumulations over p shards emulated on
+# the one card (core/distributed.py), shard-local K5-K12
+# ---------------------------------------------------------------------------
+
+MESH_P = 8
+MESH_WIDTHS = (1, 8)
+# the main path whose matrix the mesh phase reuses
+MESH_MATRIX = {"kernel": "fem_sym", "nnzsplit": "pl_sym"}
+MESH_MID_N = 40_000
+MESH_TOL = 2e-5       # of the row's absolute sum, against the local answer
+# (matrix, path, variant, strategies): Table 2's form, with the one-hot
+# twins; halo on pl_sym must raise (its band is about n)
+MESH_CASES = (
+    ("fem_sym", "segment", "stream", ("allreduce", "reduce_scatter", "halo")),
+    ("fem_sym", "flat", "stream", ("allreduce", "reduce_scatter", "halo")),
+    ("fem_sym", "flat", "onehot", ("allreduce",)),
+    ("pl_sym", "nnzsplit", "stream", ("allreduce", "reduce_scatter")),
+    ("pl_sym", "segment", "stream", ("allreduce", "reduce_scatter")),
+    ("pl_sym", "nnzsplit", "onehot", ("reduce_scatter",)),
+)
+MESH_KERNELS = ("flat_spmv_stream", "flat_spmm_stream", "flat_spmv_onehot",
+                "flat_spmm_onehot", "nnzsplit_spmv_stream",
+                "nnzsplit_spmm_stream", "nnzsplit_spmv_onehot",
+                "nnzsplit_spmm_onehot")
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches made inside are taken back off the counts: a reference
+    answer or a comparison, not the path under test."""
+    from repro_torch.kernels import _build
+    saved = _build.launch_counts()
+    try:
+        yield
+    finally:
+        for name, k in _build.KERNELS.items():
+            k.launches = saved[name]
+
+
+def _mesh_plan(path, variant, acc, p):
+    from repro_torch.core.plan import ExecutionPlan
+    return ExecutionPlan(path=path, variant=variant, strategy="mesh",
+                         mesh_p=p, accumulation=acc)
+
+
+def _shard_counts(fn, M, S=1024):
+    """Per shard, (real, padded) k-steps of a flat layout or chunks of an
+    nnz-split one; None for the index_add_ layouts."""
+    from repro_torch.core.csrc import row_of_slot
+    from repro_torch.kernels.csrc_spmv_flat import FlatHalo, FlatShards
+    from repro_torch.kernels.csrc_spmv_nnzsplit import NnzSplitShards
+    lay = fn.layout
+    if isinstance(lay, (FlatShards, FlatHalo)):
+        real = [int(lay.shard_pack(t).step_start[-1]) for t in range(lay.p)]
+        return {"steps_real": real, "steps_padded": lay.steps}
+    if isinstance(lay, NnzSplitShards):
+        ja = M.ja.numpy()
+        cnt = (np.bincount(row_of_slot(M), minlength=M.n)
+               + np.bincount(ja, minlength=M.n))
+        cum = np.concatenate([[0], np.cumsum(cnt)])
+        starts = np.asarray(fn.part.starts)
+        per = cum[starts[1:]] - cum[starts[:-1]]
+        return {"chunks_real": [int(-(-e // (lay.ks * 128))) for e in per],
+                "chunks_padded": lay.num_chunks, "r_pad": lay.r_pad}
+    return None
+
+
+def _mesh_mid_cases(seed: int):
+    """K5-K12 on shard and halo packs at a mid shape (n = 40,000, p = 8,
+    dyadic values): each mesh product on the card (the kernels) equal bit
+    for bit to the same product on the CPU (the plain versions), with p
+    launches of its kernel per product; and the p = 1 mesh equal to the
+    local executor on the card, as the JAX package's
+    ``test_mesh_executor_bit_identical_to_local_p1``."""
+    from repro_torch.core import csrc, distributed as D
+    from repro_torch.core.plan import ExecutionPlan
+    from repro_torch.kernels import _build
+    from repro_torch.serve import LocalExecutor, MeshExecutor
+    n = MESH_MID_N
+    mats = {"band": csrc.from_assembly(n, *band_arrays(
+                n, HALF_BAND, FILL, seed + 40, True, dyadic=True)),
+            "pl": csrc.from_assembly(n, *powerlaw_arrays(
+                n, seed + 41, dyadic=True))}
+    cases = ([("band", "flat", v, acc) for v in ("stream", "onehot")
+              for acc in ("allreduce", "reduce_scatter", "halo")]
+             + [("band", "nnzsplit", v, "halo") for v in ("stream", "onehot")]
+             + [("pl", "nnzsplit", v, acc) for v in ("stream", "onehot")
+                for acc in ("allreduce", "reduce_scatter")])
+    rng = np.random.default_rng(seed + 42)
+    card_mesh = D.ShardMesh(MESH_P, "cuda")
+    cpu_mesh = D.ShardMesh(MESH_P, "cpu")
+    seen = set()
+    t0 = time.perf_counter()
+    for mid, path, variant, acc in cases:
+        plan = _mesh_plan(path, variant, acc, MESH_P)
+        on_card = D.build_sharded_spmv(mats[mid], card_mesh, plan=plan)
+        plain = D.build_sharded_spmv(mats[mid], cpu_mesh, plan=plan)
+        for nrhs in MESH_WIDTHS:
+            x = dyadic_vector(rng, (n,) if nrhs == 1 else (n, nrhs))
+            name = _kernel_of(dataclasses.replace(plan, nrhs=nrhs))
+            before = _build.launch_counts()[name]
+            got = on_card(torch.from_numpy(x).cuda()).cpu()
+            check(_build.launch_counts()[name] == before + MESH_P,
+                  f"mesh mid {mid} {plan.key()}: {name} not launched once "
+                  "per shard")
+            want = plain(torch.from_numpy(x))
+            check(torch.equal(got, want),
+                  f"mesh mid {mid} {plan.key()} B={nrhs}: card differs from "
+                  f"the plain versions (max {float((got - want).abs().max())})")
+            seen.add(name)
+        del on_card, plain
+    check(seen == set(MESH_KERNELS), f"mid cases ran only {sorted(seen)}")
+    # p = 1: the mesh equal to the local executor, bit for bit (dyadic)
+    M = mats["band"]
+    local = LocalExecutor(M, ExecutionPlan(path="segment"))
+    for acc in ("allreduce", "reduce_scatter", "halo"):
+        ex = MeshExecutor(M, ExecutionPlan(path="segment", strategy="mesh",
+                                           mesh_p=1, accumulation=acc))
+        for nrhs in (1, 3, 8):
+            x = torch.from_numpy(dyadic_vector(
+                rng, (n,) if nrhs == 1 else (n, nrhs))).cuda()
+            check(torch.equal(ex(x), local(x)),
+                  f"p=1 mesh {acc} B={nrhs} differs from LocalExecutor")
+    emit("mesh_mid", n=n, p=MESH_P, cases=len(cases),
+         widths=list(MESH_WIDTHS), kernels=sorted(seen),
+         p1_equals_local=["allreduce", "reduce_scatter", "halo"],
+         seconds=round(time.perf_counter() - t0, 3))
+
+
+def _mesh_case(fn, M, local, abs_op, x, what, name):
+    """One product on the card: its kernel ``name`` (None: ``index_add_``)
+    launched once per shard, the answer checked against the local one;
+    then timed whole and by stage."""
+    from repro_torch.kernels import _build
+    before = _build.launch_counts()
+    y = fn(x)[:M.n]
+    after = _build.launch_counts()
+    launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    check(launched == ({} if name is None else {name: fn.p}),
+          f"{what}: launched {launched}, not {name} once per shard")
+    check(bool(torch.isfinite(y).all()), f"{what}: non-finite answer")
+    with uncounted():
+        want = local(x)
+        bound = MESH_TOL * abs_op(x.abs())
+    err = (y - want).abs()
+    check(bool((err <= bound + 1e-30).all()),
+          f"{what}: differs from the local answer (max {float(err.max())})")
+    del y, want, bound
+    xs = fn.prepare(x)
+    parts = fn.local(xs)
+    out = {"ms": time_ms(lambda: fn(x)),
+           "prepare_ms": time_ms(lambda: fn.prepare(x)),
+           "kernels_ms": time_ms(lambda: fn.local(xs)),
+           # combine adds into the first partial: its values grow, its
+           # time does not change
+           "combine_ms": time_ms(lambda: fn.combine(parts)),
+           "max_err_vs_local": float(err.max())}
+    out["accumulation_ms"] = out["prepare_ms"] + out["combine_ms"]
+    return out
+
+
+def _shard_kernels_hold(fn, name, x, what):
+    """Each shard's kernel ``name`` at the shapes the mesh product gives it
+    (the stacked shard or halo pack's view, the cut of its inert tail, the
+    shard's own x) against its plain version on the card, within TOL of
+    the row's absolute sum.  Returns the largest error."""
+    lay = fn.layout
+    errs = []
+    with uncounted():
+        for t, xt in enumerate(fn.prepare(x)):
+            pack = lay.shard_pack(t)
+            kernel, plain = _runners(pack, lay.ks)[name]
+            # the bound only: the stream plain version is the quicker
+            abs_plain = _runners(abs_pack(pack), lay.ks)[
+                name.replace("onehot", "stream")][1]
+            errs.append(_compare(f"{what} shard {t}/{name}", kernel, plain,
+                                 xt, exact=False, abs_plain=abs_plain))
+            del pack
+    return max(errs)
+
+
+def phase_mesh(inputs, seed: int):
+    """This slice's path: the mesh layer at full width.  ``inputs`` holds,
+    for ``fem_sym`` (the kernel path's) and ``pl_sym`` (the nnzsplit
+    path's), the matrix, its arrays, its float64 scipy matrix, the local
+    executor its main run served with and the segment operator of |A|.
+    Every mesh runs on one card, ``ShardMesh(p, "cuda")``.  Returns the
+    launch counts of the phase's main run (Table 2, Figs. 8/9, serving, CG
+    and tune_mesh): the mesh products' alone, the local answers they are
+    checked against and the per-shard comparisons taken off (``uncounted``)."""
+    from repro_torch import obs
+    from repro_torch.core import distributed as D
+    from repro_torch.core import schedule, solvers, tuner
+    from repro_torch.core.paths import BUILD_COUNTS
+    from repro_torch.core.plan import ExecutionPlan
+    from repro_torch.kernels import _build
+    from repro_torch.serve import SpmvServingEngine
+
+    t_phase = time.perf_counter()
+    _mesh_mid_cases(seed)
+    n = inputs["fem_sym"]["M"].n
+    abs_ops = {mid: d["abs"] for mid, d in inputs.items()}
+    rng = np.random.default_rng(seed + 43)
+    xs = {w: torch.from_numpy(rng.standard_normal(
+        (n,) if w == 1 else (n, w), dtype=np.float32)).cuda()
+        for w in MESH_WIDTHS}
+    mesh = D.ShardMesh(MESH_P, "cuda")
+    _build.reset_launch_counts()          # this phase's main run starts here
+
+    # -- Table 2: every strategy at p = 8, B = 1 and 8 --------------------
+    # one row partition per matrix and one layout per (matrix, path, kind),
+    # built and bound to the card once, shared by the plans that use it
+    with uncounted():
+        local_ms = {mid: {f"B{w}": time_ms(lambda: d["local"](xs[w]))
+                          for w in MESH_WIDTHS}
+                    for mid, d in inputs.items()}
+    scheds, layouts = {}, {}
+
+    def timed_build(make):
+        before = dict(BUILD_COUNTS.items())
+        t0 = time.perf_counter()
+        out = make()
+        torch.cuda.synchronize()
+        return out, {"build_s": round(time.perf_counter() - t0, 3),
+                     "builds": {k: v - before.get(k, 0)
+                                for k, v in BUILD_COUNTS.items()
+                                if v != before.get(k, 0)}}
+
+    def layout_for(mid, plan):
+        M = inputs[mid]["M"]
+        halo = plan.accumulation == "halo"
+        if not halo and mid not in scheds:
+            scheds[mid] = timed_build(lambda: schedule.schedule_for(
+                M, ExecutionPlan(path="segment"), p=MESH_P))
+        key = (mid, plan.path, halo)
+        if key not in layouts:
+            if plan.path == "segment":
+                make = ((lambda: schedule.build_halo_layout(M, MESH_P)) if halo
+                        else (lambda: schedule.build_sharded_slots(
+                            M, scheds[mid][0].partition)))
+            else:
+                make = ((lambda: schedule.build_path_halo(M, MESH_P, plan))
+                        if halo else (lambda: schedule.build_path_shards(
+                            M, scheds[mid][0].partition, plan)))
+            layouts[key] = timed_build(lambda: make().to(mesh.device))
+        return (None if halo else scheds[mid][0]), layouts[key][0]
+
+    table = []
+    shards_held = set()     # (layout, kernel): each shard held against plain
+    for mid, path, variant, strategies in MESH_CASES:
+        M = inputs[mid]["M"]
+        for acc in strategies:
+            plan = _mesh_plan(path, variant, acc, MESH_P)
+            sched, lay = layout_for(mid, plan)
+            fn = D.build_sharded_spmv(M, mesh, plan=plan, schedule=sched,
+                                      layout=lay)
+            row = {"matrix": mid, "plan": plan.key(), "path": path,
+                   "variant": variant, "strategy": acc, "p": MESH_P,
+                   "layout": layouts[(mid, path, acc == "halo")][1],
+                   "schedule": None if sched is None else scheds[mid][1],
+                   "shards": _shard_counts(fn, M), "widths": {}}
+            for w in MESH_WIDTHS:
+                what = f"mesh {mid} {plan.key()} B={w}"
+                name = (_kernel_of(dataclasses.replace(plan, nrhs=w))
+                        if path != "segment" else None)
+                r = _mesh_case(fn, M, inputs[mid]["local"], abs_ops[mid],
+                               xs[w], what, name)
+                key = (mid, path, acc == "halo", name)
+                if name is not None and key not in shards_held:
+                    r["shard_kernels_max_abs_err"] = _shard_kernels_hold(
+                        fn, name, xs[w], what)
+                    shards_held.add(key)
+                r.update(
+                    kernel=name or "index_add_",
+                    accumulation_bytes=fn.accumulation_bytes(w),
+                    collective_bytes_estimate=D.collective_bytes_estimate(
+                        M, MESH_P, acc, nrhs=w),
+                    local_plan_ms=local_ms[mid][f"B{w}"])
+                row["widths"][f"B{w}"] = r
+            table.append(row)
+            emit("mesh_table2", **row)
+            del fn
+    check({key[3] for key in shards_held} == set(MESH_KERNELS),
+          f"the full-size shard packs held only {sorted(shards_held)}")
+    raised = None
+    try:
+        D.build_sharded_spmv(inputs["pl_sym"]["M"], mesh,
+                             plan=_mesh_plan("nnzsplit", "stream", "halo",
+                                             MESH_P))
+    except ValueError as e:
+        raised = str(e)
+    check(raised is not None and "exceeds shard rows" in raised,
+          f"pl_sym halo did not raise the band gate: {raised}")
+
+    # -- Figs. 8/9: halo, flat stream, B = 1, p = 1, 2, 4, 8 ---------------
+    M = inputs["fem_sym"]["M"]
+    scaling = {}
+    for p in (1, 2, 4, 8):
+        t0 = time.perf_counter()
+        fn = D.build_sharded_spmv(
+            M, D.ShardMesh(p, "cuda"),
+            plan=_mesh_plan("flat", "stream", "halo", p),
+            layout=(layouts[("fem_sym", "flat", True)][0] if p == MESH_P
+                    else None))
+        build_s = time.perf_counter() - t0
+        r = _mesh_case(fn, M, inputs["fem_sym"]["local"],
+                       abs_ops["fem_sym"], xs[1], f"mesh scaling p={p}",
+                       "flat_spmv_stream")
+        scaling[f"p{p}"] = {"ms": r["ms"], "kernels_ms": r["kernels_ms"],
+                            "accumulation_ms": r["accumulation_ms"],
+                            "build_s": round(build_s, 3)}
+        del fn
+    del layouts, scheds
+    torch.cuda.empty_cache()
+    emit("mesh_scaling", matrix="fem_sym", path="flat", variant="stream",
+         strategy="halo", nrhs=1, local_plan_ms=local_ms["fem_sym"]["B1"],
+         note="p shards emulated on one card: the cost of more shards, "
+              "not a speedup", by_p=scaling)
+
+    # -- serving and block CG through the mesh ----------------------------
+    cache = tuner.PlanCache()
+    eng = SpmvServingEngine(cache=cache, mesh_p=MESH_P, mesh=mesh)
+    t0 = time.perf_counter()
+    plans = {"fem_sym": eng.register("fem_sym", inputs["fem_sym"]["M"]),
+             "pl_sym": eng.register("pl_sym", inputs["pl_sym"]["M"],
+                                    plan=_mesh_plan("nnzsplit", "stream",
+                                                    "reduce_scatter",
+                                                    MESH_P))}
+    register_s = time.perf_counter() - t0
+    heur = tuner.heuristic_mesh_plan(tuner.stats_of(inputs["fem_sym"]["M"]),
+                                     MESH_P)
+    check(plans["fem_sym"] == heur,
+          f"fem_sym registered {plans['fem_sym'].key()}, the heuristic mesh "
+          f"plan is {heur.key()}")
+    waves = []
+    for per in (11, 1):
+        sent = {}
+        for mid in plans:
+            for _ in range(per):
+                x = rng.standard_normal(n, dtype=np.float32)
+                sent[eng.submit(mid, x)] = (mid, x)
+        t0 = time.perf_counter()
+        out = eng.run_until_drained()
+        tick_s = time.perf_counter() - t0
+        check(set(out) == set(sent), "mesh engine: not every request answered")
+        wave = {"requests_per_matrix": per, "tick_s": round(tick_s, 4)}
+        for mid in plans:
+            uids = [u for u, (m, _) in sent.items() if m == mid]
+            for u in uids:
+                r = out[u]
+                check(r.executor == "mesh" and r.strategy == "mesh"
+                      and r.mesh_p == MESH_P and r.batched == per
+                      and r.plan_key == plans[mid].key(),
+                      f"mesh result metadata wrong: {r.meta()}")
+            X = torch.from_numpy(np.stack([sent[u][1] for u in uids], 1)
+                                 ).cuda()
+            Y = torch.from_numpy(np.stack([np.asarray(out[u])
+                                           for u in uids], 1)).cuda()
+            with uncounted():
+                want = inputs[mid]["local"](X)
+                bound = MESH_TOL * abs_ops[mid](X.abs()) + 1e-30
+            err = (Y - want).abs()
+            check(bool((err <= bound).all()),
+                  f"mesh serve {mid} B={per}: max {float(err.max())}")
+            wave[mid] = {"execute_s": out[uids[0]].timings["execute_s"],
+                         "max_err_vs_local": float(err.max())}
+        waves.append(wave)
+    # value refresh on the mesh: no structural build
+    d = inputs["fem_sym"]
+    from repro_torch.core import csrc
+    ia, ja, ad, al, _ = d["arrays"]
+    M_half = csrc.from_assembly(n, ia, ja, 0.5 * ad, 0.5 * al, 0.5 * al)
+    before = dict(BUILD_COUNTS.items())
+    t0 = time.perf_counter()
+    eng.update_values("fem_sym", M_half)
+    refresh_s = time.perf_counter() - t0
+    delta = {k: v - before.get(k, 0) for k, v in BUILD_COUNTS.items()
+             if v != before.get(k, 0)}
+    check(delta.get("shard_value_refresh") == 1
+          and not any(delta.get(k) for k in STRUCTURAL_BUILDS
+                      + ("sharded_slots", "halo_layout", "flat_shards",
+                         "flat_halo", "nnzsplit_shards", "nnzsplit_halo")),
+          f"mesh value refresh rebuilt structure: {delta}")
+    x = xs[1]
+    with uncounted():
+        want = 0.5 * d["local"](x)
+        bound = MESH_TOL * abs_ops["fem_sym"](x.abs())
+    err = (eng.executor("fem_sym")(x) - want).abs()
+    check(bool((err <= bound).all()),
+          f"mesh refresh: answer off by {float(err.max())}")
+    eng.update_values("fem_sym", d["M"])
+    # block CG with 8 right-hand sides through the MeshExecutor
+    b = rng.standard_normal((n, 8), dtype=np.float32)
+    ex = eng.executor("fem_sym")
+    t0 = time.perf_counter()
+    res = solvers.cg(ex, torch.from_numpy(b).cuda(), tol=1e-6,
+                     diag=d["M"].ad)
+    torch.cuda.synchronize()
+    cg_s = time.perf_counter() - t0
+    check(res.converged, f"mesh cg did not converge: {res.residual}")
+    xsol = res.x.cpu().numpy().astype(np.float64)
+    r = b - d["csr"] @ xsol
+    cg_true = float(np.max(np.linalg.norm(r, axis=0)
+                           / np.linalg.norm(b, axis=0)))
+    check(cg_true <= 1e-5, f"mesh cg true residual {cg_true}")
+    emit("mesh_serve", p=MESH_P, plans={m: q.key() for m, q in plans.items()},
+         register_s=round(register_s, 3), waves=waves,
+         refresh_s=round(refresh_s, 3), refresh_builds=delta,
+         cg={"matrix": "fem_sym", "nrhs": 8, "plan": ex.plan.key(),
+             "iters": res.iters, "residual": res.residual,
+             "true_residual": cg_true, "seconds": round(cg_s, 4)})
+    del eng, ex
+
+    # -- tune_mesh, then a second engine on the same cache ----------------
+    M = inputs["fem_sym"]["M"]
+    cache = tuner.PlanCache()
+    snap = obs.snapshot()
+    t0 = time.perf_counter()
+    res = tuner.tune_mesh(M, MESH_P, cache=cache, mesh=mesh,
+                          nrhs_options=(1, 8), **MEASURE)
+    tune_s = time.perf_counter() - t0
+    measured = obs.snapshot().diff(snap).total(
+        "tuner_candidates_measured_total")
+    check(measured == len(res.timings_s) > 0, "tune_mesh measured nothing")
+    schedule.clear_shard_layout_memos()   # the second engine: a new process
+    before = dict(BUILD_COUNTS.items())
+    snap = obs.snapshot()
+    t0 = time.perf_counter()
+    eng2 = SpmvServingEngine(cache=cache, autotune=True, mesh_p=MESH_P,
+                             mesh=mesh, serve_nrhs=8)
+    plan2 = eng2.register("fem_sym", M)
+    second_s = time.perf_counter() - t0
+    measured2 = obs.snapshot().diff(snap).total(
+        "tuner_candidates_measured_total")
+    builds = {k: v - before.get(k, 0) for k, v in BUILD_COUNTS.items()
+              if v != before.get(k, 0)}
+    check(plan2 == res.plan and measured2 == 0 and not builds,
+          f"second mesh engine measured {measured2}, built {builds}")
+    y = eng2.executor("fem_sym")(xs[8])
+    with uncounted():
+        want = inputs["fem_sym"]["local"](xs[8])
+        bound = MESH_TOL * abs_ops["fem_sym"](xs[8].abs())
+    err = (y - want).abs()
+    check(bool((err <= bound).all()),
+          f"tuned mesh plan answer off by {float(err.max())}")
+    emit("mesh_tune", matrix="fem_sym", p=MESH_P, nrhs_options=[1, 8],
+         measured={k: v * 1e3 for k, v in res.timings_s.items()},
+         unit="ms", winner=res.plan.key(), seconds=round(tune_s, 3),
+         second_engine={"register_s": round(second_s, 3),
+                        "measurements": measured2, "builds": builds})
+    del eng2
+    counts = _build.launch_counts()       # ... and ends here
+    for name in MESH_KERNELS:
+        check(counts[name] > 0, f"kernel {name} was never launched on the "
+              "mesh phase's main run")
+
+    # -- the process-group backend at world size 1 (NCCL) -----------------
+    import torch.distributed as dist
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        plan = _mesh_plan("flat", "onehot", "allreduce", 1)
+        em = D.build_sharded_spmv(M, D.ShardMesh(1, "cuda"), plan=plan)
+        pg = D.build_sharded_spmv(
+            M, D.ShardMesh(1, "cuda", backend="process_group"), plan=plan)
+        for w in MESH_WIDTHS:
+            a, b_ = em(xs[w]), pg.gather(pg(xs[w]))
+            check(torch.equal(a, b_), f"NCCL allreduce B={w} differs from "
+                  "the emulated answer")
+        emit("mesh_process_group", backend=dist.get_backend(), world_size=1,
+             plan=plan.key(), widths=list(MESH_WIDTHS), equal=True)
+        del em, pg
+    finally:
+        dist.destroy_process_group()
+    schedule.clear_shard_layout_memos()
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("mesh_phase", seconds=round(time.perf_counter() - t_phase, 3))
+    return counts
 
 
 def _k11_on_hub_rows(pack, x, mid, k9_ms, bound_ms):
@@ -2230,6 +2729,7 @@ def main() -> int:
 
     launches = {}
     rows = []
+    mesh_inputs, mesh_launches = {}, {}
     for spec in path_specs(args.n, args.seed):
         t0 = time.perf_counter()
         work = Workload(args.n, args.seed, spec)
@@ -2247,9 +2747,21 @@ def main() -> int:
         rows += phase_path_kernels(work, eng, spec, launches)
         if spec["name"] in TUNED:
             phase_tune(work, spec)
+        mid = MESH_MATRIX.get(spec["name"])
+        if mid is not None:     # kept for the mesh phase
+            mesh_inputs[mid] = {"M": work.M[mid], "arrays": work.arrays[mid],
+                                "csr": work.csr[mid],
+                                "local": eng.executor(mid),
+                                "abs": work.segment_abs[mid]}
         del eng, work
         gc.collect()
         torch.cuda.empty_cache()
+        if set(mesh_inputs) == set(MESH_MATRIX.values()):
+            mesh_launches = phase_mesh(mesh_inputs, args.seed)
+            mesh_inputs = {}
+            gc.collect()
+            torch.cuda.empty_cache()
+    check(bool(mesh_launches), "the mesh phase did not run")
     t0 = time.perf_counter()
     counts, sched, ke0 = phase_assembly(args.seed, args.cubes)
     for name in ("assembly_colored_stream", "assembly_colored_onehot"):
@@ -2258,6 +2770,8 @@ def main() -> int:
         launches[name] = counts[name]
     rows += phase_assembly_kernels(sched, ke0, launches, args.cubes,
                                    args.seed)
+    for row in rows:
+        row["mesh_launches"] = mesh_launches.get(row["name"], 0)
     emit("assembly_phase", seconds=round(time.perf_counter() - t0, 3))
     del sched, ke0
     gc.collect()

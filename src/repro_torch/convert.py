@@ -122,6 +122,99 @@ def nnzsplit_from_arrays(*, n: int, num_chunks: int, ks: int, r_pad: int,
         num_symmetric=bool(num_symmetric), pad_ratio=float(pad_ratio))
 
 
+def _partition(part):
+    """A port RowPartition from one, or from its four arrays."""
+    from repro_torch.core.partition import RowPartition
+    if isinstance(part, RowPartition):
+        return part
+    return RowPartition(**{f: np.asarray(part[f]) for f in (
+        "starts", "eff_lo", "eff_hi", "nnz_per_part")})
+
+
+def shard_layout_from_arrays(kind: str, *, value_dtype: str = "float32",
+                             **fields):
+    """One of the six shard layouts of the mesh strategies from a foreign
+    layout's fields: ``kind`` is its npz kind ('sharded_slots', 'halo',
+    'flat_shards', 'flat_halo', 'nnzsplit_shards' or 'nnzsplit_halo'),
+    scalars as plain values, arrays as numpy in the JAX package's shapes
+    (value streams as float32, narrowed to ``value_dtype`` for the flat and
+    nnz-split packs; index streams keep their integer dtype), and ``part``
+    a RowPartition or a mapping of its four arrays.  The nnz-split chunks
+    are checked here (``check_chunk_streams``, per shard); the flat packs'
+    slot order and step ranges when a shard's pack is taken
+    (``shard_pack``).  A numerically symmetric flat layout aliases
+    ``vals_u`` to ``vals_l`` and raises ValueError if the two differ."""
+    from repro_torch.core import schedule as sched_mod
+    vdt = _VALUE_DTYPES[value_dtype]
+    f = dict(fields)
+    if kind == "sharded_slots":
+        return sched_mod.ShardedSlots(
+            row_idx=_tensor(f["row_idx"], np.int32),
+            ja=_tensor(f["ja"], np.int32), al=_tensor(f["al"], np.float32),
+            au=_tensor(f["au"], np.float32),
+            ad_shard=_tensor(f["ad_shard"], np.float32),
+            part=_partition(f["part"]))
+    if kind == "halo":
+        return sched_mod.HaloLayout(
+            p=int(f["p"]), ns=int(f["ns"]), h=int(f["h"]),
+            n_pad=int(f["n_pad"]), row_loc=_tensor(f["row_loc"], np.int32),
+            col_rel=_tensor(f["col_rel"], np.int32),
+            al=_tensor(f["al"], np.float32), au=_tensor(f["au"], np.float32),
+            ad=_tensor(f["ad"], np.float32))
+    if kind in ("flat_shards", "flat_halo"):
+        from repro_torch.kernels import csrc_spmv_flat as flat_mod
+        p, steps, ks = int(f["p"]), int(f["steps"]), int(f["ks"])
+        shape = (p, steps, ks * 128)
+        sym = bool(f["num_symmetric"])
+        vl_np = np.asarray(f["vals_l"], np.float32).reshape(shape)
+        vu_np = np.asarray(f["vals_u"], np.float32).reshape(shape)
+        if sym and not np.array_equal(vl_np, vu_np):
+            raise ValueError("a numerically symmetric layout needs "
+                             "vals_u == vals_l")
+        vl = _tensor(vl_np).to(vdt)
+        common = dict(
+            tm=int(f["tm"]), nt=int(f["nt"]), w_pad=int(f["w_pad"]),
+            steps=steps, ks=ks, vals_l=vl,
+            vals_u=vl if sym else _tensor(vu_np).to(vdt),
+            col_local=_tensor(np.asarray(f["col_local"]).reshape(shape)),
+            row_in_win=_tensor(np.asarray(f["row_in_win"]).reshape(shape)),
+            ad=_tensor(f["ad"], np.float32).to(vdt),
+            tile_of_step=_tensor(f["tile_of_step"], np.int32),
+            first_of_tile=_tensor(f["first_of_tile"], np.int32),
+            num_symmetric=sym)
+        if kind == "flat_shards":
+            return flat_mod.FlatShards(p=p, n=int(f["n"]), **common)
+        return flat_mod.FlatHalo(p=p, ns=int(f["ns"]), h=int(f["h"]),
+                                 n_local=int(f["n_local"]), **common)
+    if kind in ("nnzsplit_shards", "nnzsplit_halo"):
+        from repro_torch.kernels import csrc_spmv_nnzsplit as nz_mod
+        p, nc, ks = int(f["p"]), int(f["num_chunks"]), int(f["ks"])
+        r_pad = int(f["r_pad"])
+        shape = (p, nc, ks * 128)
+        lrow = _tensor(np.asarray(f["lrow"]).reshape(shape))
+        src = _tensor(np.asarray(f["src"]).reshape(shape))
+        if lrow.dtype != src.dtype:
+            raise ValueError(f"lrow is {lrow.dtype} but src is {src.dtype}")
+        row0 = _tensor(f["chunk_row0"], np.int32)
+        fix = _tensor(f["fixup_idx"], np.int32)
+        rows = int(f["n"] if kind == "nnzsplit_shards" else f["n_local"])
+        for t in range(p):
+            nz_mod.check_chunk_streams(lrow[t], src[t], row0[t], fix[t],
+                                       n=rows, r_pad=r_pad)
+        common = dict(
+            num_chunks=nc, ks=ks, r_pad=r_pad,
+            vals=_tensor(np.asarray(f["vals"], np.float32).reshape(
+                shape)).to(vdt),
+            lrow=lrow, src=src, chunk_row0=row0, fixup_idx=fix,
+            ad=_tensor(f["ad"], np.float32).to(vdt),
+            num_symmetric=bool(f["num_symmetric"]))
+        if kind == "nnzsplit_shards":
+            return nz_mod.NnzSplitShards(p=p, n=int(f["n"]), **common)
+        return nz_mod.NnzSplitHalo(p=p, ns=int(f["ns"]), h=int(f["h"]),
+                                   n_local=int(f["n_local"]), **common)
+    raise ValueError(f"unknown shard layout kind {kind!r}")
+
+
 def coloring_from_arrays(*, color_of_row, num_colors: int, rows_by_color,
                          color_ptr, provider: str = "greedy",
                          level_of_row=None, group_of_row=None):

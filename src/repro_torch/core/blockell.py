@@ -289,3 +289,18 @@ def overlap_add_mm(pack_, wins: torch.Tensor) -> torch.Tensor:
     if wins.ndim != 3:
         raise ValueError("overlap_add_mm takes (NT, W, B) windows")
     return overlap_add(pack_, wins)
+
+
+def move_layout(lay, names, device):
+    """``lay`` (a shard layout) with its tensor fields ``names`` on
+    ``device``; a ``vals_u`` that aliases ``vals_l`` (a numerically
+    symmetric pack) keeps aliasing it."""
+    device = torch.device(device)
+    if all(getattr(lay, f).device == device for f in names):
+        return lay
+    moved = {f: getattr(lay, f).to(device).contiguous() for f in names
+             if f != "vals_u"}
+    if "vals_u" in names:
+        moved["vals_u"] = (moved["vals_l"] if lay.vals_u is lay.vals_l
+                           else lay.vals_u.to(device).contiguous())
+    return dataclasses.replace(lay, **moved)

@@ -20,7 +20,7 @@ from typing import List, Tuple
 
 import numpy as np
 
-from .csrc import CSRC, _np, nnz_per_row
+from .csrc import CSRC, _np, bandwidth, nnz_per_row
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,3 +120,58 @@ def halo_widths(part: RowPartition) -> List[int]:
     shard writes (band matrices ⇒ this is the halo a shard must send to its
     left neighbors)."""
     return [int(part.starts[t] - part.eff_lo[t]) for t in range(part.p)]
+
+
+# ---------------------------------------------------------------------------
+# Shard geometry of the mesh strategies (core/distributed.py): the row
+# ranges and diagonals every shard layout is cut along
+# ---------------------------------------------------------------------------
+
+def _round_up(v: int, m: int) -> int:
+    return (v + m - 1) // m * m
+
+
+def halo_geometry(M: CSRC, p: int) -> Tuple[int, int]:
+    """(ns, h) of the *effective/halo* strategy's equal-row shards: rows per
+    shard (8-aligned) and the halo width (the 8-aligned bandwidth).  Raises
+    ValueError when the band does not fit inside one shard (fall back to
+    allreduce / reduce_scatter)."""
+    ns = _round_up(-(-M.n // p), 8)
+    band = bandwidth(M)
+    h = max(8, _round_up(band, 8))
+    if h > ns:
+        raise ValueError(
+            f"band {band} exceeds shard rows {ns}; halo strategy needs "
+            "band <= n/p (fall back to allreduce/reduce_scatter)")
+    return ns, h
+
+
+def halo_slot_spans(M: CSRC, p: int, ns: int) -> List[Tuple[int, int]]:
+    """Lower-slot range of each equal-row shard (slots are row-major)."""
+    ia = _np(M.ia).astype(np.int64)
+    return [(int(ia[min(M.n, t * ns)]), int(ia[min(M.n, (t + 1) * ns)]))
+            for t in range(p)]
+
+
+def shard_diagonal(M: CSRC, starts, width: int) -> np.ndarray:
+    """(p, width) float32: shard t's own diagonal entries at their global
+    rows [starts[t], starts[t+1]), zero elsewhere."""
+    p = len(starts) - 1
+    ad = np.zeros((p, width), np.float32)
+    ad_full = _np(M.ad)
+    for t in range(p):
+        r0, r1 = int(starts[t]), int(starts[t + 1])
+        ad[t, r0:r1] = ad_full[r0:r1]
+    return ad
+
+
+def halo_diagonal(M: CSRC, p: int, ns: int, h: int, width: int) -> np.ndarray:
+    """(p, width) float32 local diagonals of the halo shards: shard t's own
+    rows at local rows [h, h + ns), the halo rows zero."""
+    ad = np.zeros((p, width), np.float32)
+    ad_full = _np(M.ad)
+    for t in range(p):
+        r0, r1 = t * ns, min(M.n, (t + 1) * ns)
+        if r1 > r0:
+            ad[t, h:h + (r1 - r0)] = ad_full[r0:r1]
+    return ad

@@ -17,13 +17,16 @@ operator stack needs to know about it:
   make_spmm         executor factory, X of shape (m, r)
   refresh_values    same-structure value-stream refresh (FEM time
                     stepping; schedule.refresh_schedule) — optional
+  shard_support     how the path runs shard-locally inside the mesh
+                    strategies (:class:`ShardSupport`) — optional
 
 ``register_path`` wires the name into ``plan.PATHS`` (so ``ExecutionPlan``
 validation accepts it) and makes the path visible to the operator, the
 schedule layer and the tuner.  Registered here, in the JAX package's
-order: ``segment``, ``kernel``, ``colorful``, ``flat`` and ``nnzsplit``.
-The ``ShardSupport`` record of the mesh strategies (with the flat and
-nnz-split shard layouts) is not in this package yet.
+order: ``segment``, ``kernel``, ``colorful``, ``flat`` and ``nnzsplit``;
+``flat`` and ``nnzsplit`` register shard support (``FLAT_SHARD_SUPPORT``,
+``NNZSPLIT_SHARD_SUPPORT``), the others run shard-locally as
+``index_add_`` (core/distributed.py).
 
 The executor factories receive the matrix and the schedule **already on
 the executor's device** (``SpmvOperator._bind`` moves them once) and
@@ -36,6 +39,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import importlib
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -134,6 +138,83 @@ class CandidateSpace:
 
 
 @dataclasses.dataclass(frozen=True)
+class ShardSupport:
+    """How a path executes *shard-locally* inside the mesh strategies
+    (core/distributed.py) and the serving ``MeshExecutor``.
+
+    A path without one (``KernelPath.shard_support is None``) still runs on
+    a mesh — the strategies take the ``index_add_`` shard-local product —
+    but a path that registers one is served by all three accumulation
+    strategies over its own per-shard packs, with the schedule layer
+    memoizing and shipping the layouts and ``refresh_shard_layout``
+    refreshing their value streams.
+
+      name      the path's name: the npz kinds and BUILD_COUNTS keys of its
+                layouts are ``<name>_shards`` (allreduce / reduce_scatter)
+                and ``<name>_halo``, and its kernel module holds
+                ``pack_<name>_shards`` / ``pack_<name>_halo``,
+                ``refresh_<name>_shards`` / ``refresh_<name>_halo``,
+                ``<name>_local_fn`` and ``<name>_halo_dims``
+      module    that kernel module, imported at first use
+      classes   the names of its (shards, halo) layout dataclasses
+      geometry  plan -> the plan-derived geometry tuple layouts are keyed
+                by (memoization and npz cache keys)
+      pack_kw   plan -> the packers' keyword arguments
+
+    The JAX package's ``shard_arrays`` / ``shard_specs`` (shard_map
+    plumbing) have no counterpart: a layout's ``shard_pack(t)`` is shard
+    t's pack, views of the stacked streams.  ``local_fn`` takes the plan's
+    variant, which the JAX package drops (ROADMAP C2).
+    """
+    name: str
+    module: str
+    classes: Tuple[str, str]
+    geometry: Callable[[ExecutionPlan], tuple]
+    pack_kw: Callable[[ExecutionPlan], dict]
+
+    @property
+    def shards_kind(self) -> str:
+        return f"{self.name}_shards"
+
+    @property
+    def halo_kind(self) -> str:
+        return f"{self.name}_halo"
+
+    def _get(self, attr: str):
+        return getattr(importlib.import_module(self.module), attr)
+
+    def layout_classes(self) -> dict:
+        """{kind: layout dataclass}."""
+        return {self.shards_kind: self._get(self.classes[0]),
+                self.halo_kind: self._get(self.classes[1])}
+
+    def pack_shards(self, M, starts, plan):
+        """The row-partition layout of M over the partition ``starts``."""
+        return self._get(f"pack_{self.name}_shards")(M, starts,
+                                                     **self.pack_kw(plan))
+
+    def pack_halo(self, M, p: int, plan):
+        """The halo layout of M over p shards (ValueError: band gate)."""
+        return self._get(f"pack_{self.name}_halo")(M, p,
+                                                   **self.pack_kw(plan))
+
+    def refresh_shards(self, lay, M, starts):
+        return self._get(f"refresh_{self.name}_shards")(lay, M, starts)
+
+    def refresh_halo(self, lay, M):
+        return self._get(f"refresh_{self.name}_halo")(lay, M)
+
+    def local_fn(self, lay, n_local: int, variant: str) -> Callable:
+        """fn(t, x) -> shard t's product, n_local rows; the shard packs
+        are built once, when this is called."""
+        return self._get(f"{self.name}_local_fn")(lay, n_local, variant)
+
+    def halo_dims(self, lay) -> tuple:
+        """(ns, h, n_local) of a halo layout."""
+        return self._get(f"{self.name}_halo_dims")(lay)
+
+
+@dataclasses.dataclass(frozen=True)
 class KernelPath:
     """Everything the plan/schedule/tuner/operator stack needs to know
     about one execution path."""
@@ -151,6 +232,10 @@ class KernelPath:
     # purely structural (or absent) and is reused as-is — the executors
     # read values from the matrix directly ('segment').
     refresh_values: Optional[Callable[..., dict]] = None
+    # Shard-local execution for the mesh strategies and the serving
+    # MeshExecutor.  None means the path runs shard-locally as index_add_
+    # (core/distributed.py's default).
+    shard_support: Optional[ShardSupport] = None
 
 
 _REGISTRY: Dict[str, KernelPath] = {}
@@ -609,6 +694,18 @@ def _flat_make_spmm(M, schedule, plan, *, coloring=None):
     return functools.partial(flat_mod.flat_spmm, schedule.flat_pack)
 
 
+FLAT_SHARD_SUPPORT = ShardSupport(
+    name="flat",
+    module="repro_torch.kernels.csrc_spmv_flat",
+    classes=("FlatShards", "FlatHalo"),
+    geometry=lambda plan: (plan.tm, plan.k_step_sublanes, plan.w_cap,
+                           plan.index_dtype, plan.value_dtype),
+    pack_kw=lambda plan: dict(
+        tm=plan.tm, ks=plan.k_step_sublanes, w_cap=plan.w_cap,
+        dtype=_value_dtype_of(plan), index_dtype=_index_dtype_of(plan)),
+)
+
+
 register_path(KernelPath(
     name="flat",
     feasible=_windowed_feasible,
@@ -620,6 +717,7 @@ register_path(KernelPath(
     make_spmv=_flat_make_spmv,
     make_spmm=_flat_make_spmm,
     refresh_values=_flat_refresh,
+    shard_support=FLAT_SHARD_SUPPORT,
 ))
 
 
@@ -760,6 +858,18 @@ def _nnzsplit_make_spmm(M, schedule, plan, *, coloring=None):
     return functools.partial(nz_mod.nnzsplit_spmm, schedule.nnzsplit_pack)
 
 
+NNZSPLIT_SHARD_SUPPORT = ShardSupport(
+    name="nnzsplit",
+    module="repro_torch.kernels.csrc_spmv_nnzsplit",
+    classes=("NnzSplitShards", "NnzSplitHalo"),
+    geometry=lambda plan: (plan.k_step_sublanes, plan.w_cap,
+                           plan.index_dtype, plan.value_dtype),
+    pack_kw=lambda plan: dict(
+        ks=plan.k_step_sublanes, r_cap=plan.w_cap,
+        dtype=_value_dtype_of(plan), index_dtype=_index_dtype_of(plan)),
+)
+
+
 register_path(KernelPath(
     name="nnzsplit",
     feasible=_nnzsplit_feasible,
@@ -771,4 +881,5 @@ register_path(KernelPath(
     make_spmv=_nnzsplit_make_spmv,
     make_spmm=_nnzsplit_make_spmm,
     refresh_values=_nnzsplit_refresh,
+    shard_support=NNZSPLIT_SHARD_SUPPORT,
 ))

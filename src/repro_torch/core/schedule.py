@@ -36,6 +36,13 @@ Serialization is npz + a JSON meta record (``save_npz`` / ``load_npz``);
 ``SCHEDULE_VERSION`` gates the on-disk layout — bumping it (e.g. on a pack
 format change) invalidates every stored schedule, which is then silently
 rebuilt on the next request.
+
+The mesh strategies' per-shard layouts live here too (``ShardedSlots`` /
+``HaloLayout`` for the ``index_add_`` shard-local product, and through the
+registry's ``ShardSupport`` the flat and nnz-split shard packs), memoized
+per exact matrix and geometry and shipped through the PlanCache's npz
+layer (``SHARD_LAYOUT_VERSION``), with the JAX package's arrays and keys so
+files cross-load.
 """
 from __future__ import annotations
 
@@ -49,10 +56,11 @@ import numpy as np
 import torch
 
 from . import paths as paths_mod
-from .blockell import BlockEll
+from .blockell import BlockEll, move_layout
 from .csrc import CSRC, _np, row_of_slot
-from .partition import (RowPartition, halo_widths, partition_rows_by_count,
-                        partition_rows_by_nnz)
+from .partition import (RowPartition, halo_geometry, halo_widths,
+                        partition_rows_by_count, partition_rows_by_nnz,
+                        shard_diagonal)
 # the build probe lives with the registry (the paths' build functions count into it);
 # re-exported here because consumers/tests address it as
 # ``schedule.BUILD_COUNTS`` — same Counter object.
@@ -366,3 +374,418 @@ def schedule_for(M: CSRC, plan: ExecutionPlan, cache=None, p: int = 8,
         sched = build_schedule(M, plan, p=p)
         cache.put_schedule(sched)
     return sched
+
+
+# ---------------------------------------------------------------------------
+# Shard layouts (the shard-level structure precomputations the mesh
+# strategies of core/distributed.py execute with)
+# ---------------------------------------------------------------------------
+
+def _round_up(v: int, m: int) -> int:
+    return (v + m - 1) // m * m
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedSlots:
+    """Slot arrays split into p nnz-balanced groups, padded to equal length
+    and stacked on a leading shard axis (allreduce / reduce_scatter)."""
+    row_idx: torch.Tensor    # (p, S) int32 global row of each slot (pad: 0)
+    ja: torch.Tensor         # (p, S) int32 global column          (pad: 0)
+    al: torch.Tensor         # (p, S) float32                      (pad: 0.0)
+    au: torch.Tensor         # (p, S)
+    ad_shard: torch.Tensor   # (p, n) diagonal owned by the shard, zero rest
+    part: RowPartition
+
+    def to(self, device) -> "ShardedSlots":
+        return move_layout(self, ("row_idx", "ja", "al", "au", "ad_shard"),
+                           device)
+
+    def reference_shapes(self) -> dict:
+        return {}
+
+
+@dataclasses.dataclass(frozen=True)
+class HaloLayout:
+    """Equal-row shard slot arrays in *local* coordinates for the paper's
+    effective accumulation ('halo'): each shard owns ns rows and writes at
+    most h rows below its range (the halo sent to the left neighbour)."""
+    p: int
+    ns: int                  # rows per shard (8-aligned)
+    h: int                   # halo width (8-aligned bandwidth)
+    n_pad: int
+    row_loc: torch.Tensor    # (p, S) int32 local row of each slot
+    col_rel: torch.Tensor    # (p, S) int32 column relative to [r0-h, r1)
+    al: torch.Tensor         # (p, S) float32
+    au: torch.Tensor         # (p, S)
+    ad: torch.Tensor         # (p, ns)
+
+    def to(self, device) -> "HaloLayout":
+        return move_layout(self, ("row_loc", "col_rel", "al", "au", "ad"),
+                           device)
+
+    def reference_shapes(self) -> dict:
+        return {}
+
+
+# Memo of the shard layouts: repeated builder calls for the same matrix
+# (serving restarts, solver re-instantiation) are zero-precompute.  Keys pin
+# the exact matrix (value digest) and the layout geometry; no eviction
+# (``clear_shard_layout_memos`` empties them).
+_SHARDED_SLOTS_MEMO: dict = {}
+_HALO_LAYOUT_MEMO: dict = {}
+_FLAT_SHARDS_MEMO: dict = {}
+_FLAT_HALO_MEMO: dict = {}
+_PATH_LAYOUT_MEMOS: dict = {"flat_shards": _FLAT_SHARDS_MEMO,
+                            "flat_halo": _FLAT_HALO_MEMO}
+
+
+def _layout_memo(kind: str) -> dict:
+    return _PATH_LAYOUT_MEMOS.setdefault(kind, {})
+
+
+def clear_shard_layout_memos() -> None:
+    """Drop every memoized shard layout (the next request rebuilds or
+    loads from a cache)."""
+    _SHARDED_SLOTS_MEMO.clear()
+    _HALO_LAYOUT_MEMO.clear()
+    for memo in _PATH_LAYOUT_MEMOS.values():
+        memo.clear()
+
+
+# ---------------------------------------------------------------------------
+# Shard-layout npz: ships the per-shard layouts to serving workers through
+# the PlanCache, keyed by (fingerprint, value digest, p, kind, geometry)
+# ---------------------------------------------------------------------------
+
+SHARD_LAYOUT_VERSION = 1
+
+
+def _layout_kinds() -> dict:
+    """npz kind -> dataclass for every serializable shard layout: the two
+    owned here plus every registered path's ShardSupport layouts."""
+    kinds = {"sharded_slots": ShardedSlots, "halo": HaloLayout}
+    for entry in paths_mod.registered_paths():
+        if entry.shard_support is not None:
+            kinds.update(entry.shard_support.layout_classes())
+    return kinds
+
+
+def shard_layout_key(kind: str, fp: str, digest: str, p: int,
+                     geo: tuple = ()) -> str:
+    """Cache key of one shard layout: matrix class + exact values + shard
+    count + kind, plus a hash of the geometry (tile height, k-step, index
+    dtype, partition boundaries...) — the JAX package's key."""
+    gh = hashlib.sha1(json.dumps([str(g) for g in geo]).encode()
+                      ).hexdigest()[:10]
+    return f"shard-{kind}-{fp}.{digest}.p{p}.{gh}"
+
+
+def save_shard_layout_npz(path: str, lay):
+    """Serialize any shard layout in the JAX package's layout: scalar
+    fields to the JSON meta, arrays (and the embedded RowPartition) to npz,
+    bf16 value streams widened to float32 (lossless) and named in the
+    meta, slot streams in the JAX package's shapes."""
+    kind = next(k for k, cls in _layout_kinds().items()
+                if isinstance(lay, cls))
+    meta = {"version": SHARD_LAYOUT_VERSION, "kind": kind}
+    arrays = {}
+    shapes = lay.reference_shapes()
+    for f in dataclasses.fields(lay):
+        v = getattr(lay, f.name)
+        if isinstance(v, RowPartition):
+            for pf in dataclasses.fields(v):
+                arrays[f"part__{pf.name}"] = np.asarray(getattr(v, pf.name))
+        elif isinstance(v, (bool, int, float)):
+            meta[f.name] = v
+        else:
+            t = v.detach().cpu()
+            if t.dtype == torch.bfloat16:
+                meta.setdefault("__bf16__", []).append(f.name)
+                t = t.float()
+            a = t.numpy()
+            arrays[f.name] = a.reshape(shapes[f.name]) if f.name in shapes \
+                else a
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = path + ".tmp.npz"
+    with open(tmp, "wb") as f:
+        np.savez_compressed(f, __meta__=np.frombuffer(
+            json.dumps(meta, sort_keys=True).encode(), dtype=np.uint8),
+            **arrays)
+    os.replace(tmp, path)
+
+
+def load_shard_layout_npz(path: str):
+    """The inverse of :func:`save_shard_layout_npz`, for files of either
+    package (``convert.shard_layout_from_arrays`` rebuilds and checks the
+    layout); a bf16 layout keeps its dtype."""
+    from repro_torch.convert import shard_layout_from_arrays
+    with np.load(path) as z:
+        meta = json.loads(bytes(z["__meta__"]).decode())
+        if meta.get("version") != SHARD_LAYOUT_VERSION:
+            raise ValueError(
+                f"shard layout {path}: version {meta.get('version')!r} "
+                f"!= {SHARD_LAYOUT_VERSION}")
+        kind = meta["kind"]
+        cls = _layout_kinds()[kind]
+        kwargs = {}
+        for f in dataclasses.fields(cls):
+            if f.name in meta:
+                kwargs[f.name] = meta[f.name]
+            elif f.name == "part":
+                kwargs["part"] = RowPartition(
+                    starts=z["part__starts"], eff_lo=z["part__eff_lo"],
+                    eff_hi=z["part__eff_hi"],
+                    nnz_per_part=z["part__nnz_per_part"])
+            else:
+                kwargs[f.name] = z[f.name]
+        value_dtype = "bfloat16" if meta.get("__bf16__") else "float32"
+        return shard_layout_from_arrays(kind, value_dtype=value_dtype,
+                                        **kwargs)
+
+
+def _cached_layout(M: CSRC, cache, kind: str, p: int, geo: tuple):
+    """Probe the cache's shard-layout store; returns (layout or None, key
+    or None)."""
+    if cache is None:
+        return None, None
+    from .tuner import fingerprint as _fingerprint
+    key = shard_layout_key(kind, _fingerprint(M), value_digest(M), p, geo)
+    return cache.get_shard_layout(key), key
+
+
+def _ensure_shipped(M: CSRC, cache, kind: str, p: int, geo: tuple, lay):
+    """Persist a memoized layout on the first cache-bearing request: a
+    layout built without a cache (``tune_mesh``'s measurements) ships as
+    soon as a cache-aware consumer asks for it."""
+    if cache is None:
+        return
+    shipped, key = _cached_layout(M, cache, kind, p, geo)
+    if shipped is None and key is not None:
+        cache.put_shard_layout(key, lay)
+
+
+def _memoized(M: CSRC, cache, kind: str, p: int, geo: tuple, memo: dict,
+              memo_key, build, counter: Optional[str] = None):
+    """Memo hit > cache hit > build, counted as ``BUILD_COUNTS[counter]``
+    (default: the kind)."""
+    hit = memo.get(memo_key)
+    if hit is not None:
+        _ensure_shipped(M, cache, kind, p, geo, hit)
+        return hit
+    shipped, key = _cached_layout(M, cache, kind, p, geo)
+    if shipped is not None:
+        memo[memo_key] = shipped
+        return shipped
+    out = build()
+    BUILD_COUNTS.inc(counter or kind)
+    memo[memo_key] = out
+    if key is not None:
+        cache.put_shard_layout(key, out)
+    return out
+
+
+def _stack_spans(arr: np.ndarray, spans, width: int, fill, dtype):
+    out = np.full((len(spans), width), fill, dtype=dtype)
+    for t, (s, e) in enumerate(spans):
+        out[t, :e - s] = arr[s:e]
+    return out
+
+
+def _sharded_slot_arrays(M: CSRC, part: RowPartition, width: int):
+    """(spans, al, au, ad_shard) of the stacked slot arrays."""
+    ia = _np(M.ia).astype(np.int64)
+    spans = [(int(ia[part.starts[t]]), int(ia[part.starts[t + 1]]))
+             for t in range(part.p)]
+    al = _stack_spans(_np(M.al), spans, width, 0.0, np.float32)
+    au = _stack_spans(_np(M.au), spans, width, 0.0, np.float32)
+    return spans, al, au, shard_diagonal(M, part.starts, M.n)
+
+
+def build_sharded_slots(M: CSRC, part: RowPartition,
+                        cache=None) -> ShardedSlots:
+    """Shard-stacked slot arrays over the schedule's row partition
+    (memoized per exact matrix + partition boundaries; with ``cache``, also
+    served from / shipped to the PlanCache npz layer)."""
+    starts_geo = tuple(int(s) for s in np.asarray(part.starts))
+
+    def build():
+        ia = _np(M.ia).astype(np.int64)
+        smax = max(1, max(int(ia[part.starts[t + 1]] - ia[part.starts[t]])
+                          for t in range(part.p)))
+        smax = _round_up(smax, 128)
+        spans, al, au, ad_shard = _sharded_slot_arrays(M, part, smax)
+        return ShardedSlots(
+            row_idx=torch.from_numpy(_stack_spans(
+                row_of_slot(M), spans, smax, 0, np.int32)),
+            ja=torch.from_numpy(_stack_spans(_np(M.ja), spans, smax, 0,
+                                             np.int32)),
+            al=torch.from_numpy(al), au=torch.from_numpy(au),
+            ad_shard=torch.from_numpy(ad_shard), part=part)
+
+    memo_key = (value_digest(M), np.asarray(part.starts).tobytes())
+    return _memoized(M, cache, "sharded_slots", part.p, starts_geo,
+                     _SHARDED_SLOTS_MEMO, memo_key, build)
+
+
+def _halo_slot_positions(ros: np.ndarray, p: int, ns: int):
+    """(shard, position) of every slot in the equal-row halo layout: slots
+    are row-major, so a shard's slots are consecutive and the position is
+    the slot index minus the shard's first slot (the JAX package's fill
+    order: a stable sort over a non-decreasing shard array)."""
+    shard = ros // ns
+    first = np.searchsorted(shard, np.arange(p))
+    q = np.arange(ros.shape[0], dtype=np.int64) - first[shard]
+    return shard, q
+
+
+def _halo_values(M: CSRC, p: int, ns: int, n_pad: int, smax: int):
+    ros = row_of_slot(M)
+    shard, q = _halo_slot_positions(ros, p, ns)
+    al_s = np.zeros((p, smax), np.float32)
+    au_s = np.zeros((p, smax), np.float32)
+    al_s[shard, q] = _np(M.al)
+    au_s[shard, q] = _np(M.au)
+    ad_pad = np.zeros(n_pad, np.float32)
+    ad_pad[:M.n] = _np(M.ad)
+    return al_s, au_s, ad_pad.reshape(p, ns)
+
+
+def build_halo_layout(M: CSRC, p: int, cache=None) -> HaloLayout:
+    """Memoized per exact matrix + shard count (with ``cache``, also served
+    from / shipped to the PlanCache npz layer).  Raises ValueError when the
+    band does not fit inside one shard (the strategy's gate: fall back to
+    allreduce / reduce_scatter).  Vectorized; the JAX package's arrays."""
+    def build():
+        n = M.n
+        ns, h = halo_geometry(M, p)
+        n_pad = ns * p
+        ros = row_of_slot(M)
+        shard, q = _halo_slot_positions(ros, p, ns)
+        counts = np.bincount(shard, minlength=p)
+        smax = _round_up(max(1, int(counts.max()) if counts.size else 0),
+                         128)
+        row_loc = np.zeros((p, smax), np.int32)
+        col_rel = np.full((p, smax), ns + h - 1, np.int32)  # inert target
+        row_loc[shard, q] = ros - shard * ns
+        col_rel[shard, q] = _np(M.ja).astype(np.int64) - (shard * ns - h)
+        al_s, au_s, ad = _halo_values(M, p, ns, n_pad, smax)
+        return HaloLayout(p=p, ns=ns, h=h, n_pad=n_pad,
+                          row_loc=torch.from_numpy(row_loc),
+                          col_rel=torch.from_numpy(col_rel),
+                          al=torch.from_numpy(al_s),
+                          au=torch.from_numpy(au_s),
+                          ad=torch.from_numpy(ad))
+
+    return _memoized(M, cache, "halo", p, (), _HALO_LAYOUT_MEMO,
+                     (value_digest(M), p), build, counter="halo_layout")
+
+
+def _shard_support_of(path_name: str):
+    sup = paths_mod.get_path(path_name).shard_support
+    if sup is None:
+        raise ValueError(f"path {path_name!r} registers no shard support; "
+                         "the mesh strategies run it as index_add_")
+    return sup
+
+
+def build_path_shards(M: CSRC, part: RowPartition, plan: ExecutionPlan,
+                      cache=None):
+    """Per-shard packs of ``plan.path`` over the schedule's row partition
+    (global coordinates; allreduce / reduce_scatter).  Generic over the
+    registry's ShardSupport: memoized per exact matrix + partition
+    boundaries + pack geometry; with ``cache``, also served from / shipped
+    to the PlanCache npz layer."""
+    sup = _shard_support_of(plan.path)
+    kind = sup.shards_kind
+    pgeo = sup.geometry(plan)
+    geo = pgeo + tuple(int(s) for s in np.asarray(part.starts))
+    memo_key = (value_digest(M), np.asarray(part.starts).tobytes()) + pgeo
+    return _memoized(M, cache, kind, part.p, geo, _layout_memo(kind),
+                     memo_key,
+                     lambda: sup.pack_shards(M, np.asarray(part.starts),
+                                             plan))
+
+
+def build_path_halo(M: CSRC, p: int, plan: ExecutionPlan, cache=None):
+    """Per-shard local-coordinate packs of ``plan.path`` for the halo
+    strategy.  Raises ValueError when the band does not fit inside one
+    shard (the gate of :func:`build_halo_layout`).  Memoized per exact
+    matrix + shard count + pack geometry; with ``cache``, also served from
+    / shipped to the PlanCache npz layer."""
+    sup = _shard_support_of(plan.path)
+    kind = sup.halo_kind
+    geo = sup.geometry(plan)
+    return _memoized(M, cache, kind, p, geo, _layout_memo(kind),
+                     (value_digest(M), p) + geo,
+                     lambda: sup.pack_halo(M, p, plan))
+
+
+def build_flat_shards(M: CSRC, part: RowPartition, plan: ExecutionPlan,
+                      cache=None):
+    """The JAX package's name: :func:`build_path_shards` for a 'flat'
+    plan."""
+    return build_path_shards(M, part, plan, cache=cache)
+
+
+def build_flat_halo_layout(M: CSRC, p: int, plan: ExecutionPlan,
+                           cache=None):
+    """The JAX package's name: :func:`build_path_halo` for a 'flat'
+    plan."""
+    return build_path_halo(M, p, plan, cache=cache)
+
+
+# ---------------------------------------------------------------------------
+# Same-structure value refresh of the shard layouts (the mesh's
+# refresh_schedule: update_values / time stepping never re-pack,
+# re-partition or re-color on the mesh)
+# ---------------------------------------------------------------------------
+
+def refresh_shard_layout(lay, M: CSRC, part: Optional[RowPartition] = None):
+    """Refill a shard layout's value streams from a same-structure matrix.
+    Structural arrays (slot indices, tile maps, halo geometry) are reused
+    untouched and the refilled streams land on the layout's device; the
+    probe counter is ``shard_value_refresh`` and no structural counter
+    moves.  ``part`` is required for the partition-keyed layouts of the
+    paths (FlatShards, NnzSplitShards: they do not embed their partition
+    boundaries)."""
+    BUILD_COUNTS.inc("shard_value_refresh")
+    if isinstance(lay, ShardedSlots):
+        return _refresh_sharded_slots(lay, M)
+    if isinstance(lay, HaloLayout):
+        return _refresh_halo_layout(lay, M)
+    for entry in paths_mod.registered_paths():
+        sup = entry.shard_support
+        if sup is None:
+            continue
+        classes = sup.layout_classes()
+        if isinstance(lay, classes[sup.shards_kind]):
+            if part is None:
+                raise ValueError(
+                    f"refresh_shard_layout: {type(lay).__name__} needs "
+                    "the row partition it was built over")
+            return sup.refresh_shards(lay, M, np.asarray(part.starts))
+        if isinstance(lay, classes[sup.halo_kind]):
+            return sup.refresh_halo(lay, M)
+    raise TypeError(f"unknown shard layout {type(lay).__name__}")
+
+
+def _refresh_sharded_slots(ss: ShardedSlots, M: CSRC) -> ShardedSlots:
+    """Value-only refill of the stacked slot arrays: the spans come again
+    from the (unchanged) row pointers, so the padded layout matches the
+    original build."""
+    _, al, au, ad_shard = _sharded_slot_arrays(M, ss.part,
+                                               int(ss.al.shape[1]))
+    dev = ss.al.device
+    return dataclasses.replace(
+        ss, al=torch.from_numpy(al).to(dev), au=torch.from_numpy(au).to(dev),
+        ad_shard=torch.from_numpy(ad_shard).to(dev))
+
+
+def _refresh_halo_layout(lay: HaloLayout, M: CSRC) -> HaloLayout:
+    """Value-only refill of the local-coordinate halo arrays."""
+    al_s, au_s, ad = _halo_values(M, lay.p, lay.ns, lay.n_pad,
+                                  int(lay.al.shape[1]))
+    dev = lay.al.device
+    return dataclasses.replace(lay, al=torch.from_numpy(al_s).to(dev),
+                               au=torch.from_numpy(au_s).to(dev),
+                               ad=torch.from_numpy(ad).to(dev))

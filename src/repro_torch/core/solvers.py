@@ -125,7 +125,7 @@ def bicgstab(spmv: Callable, b: torch.Tensor,
 
 
 def cg_solve(M, b: torch.Tensor, *, plan=None, cache=None,
-             autotune: bool = False, device=None,
+             autotune: bool = False, device=None, mesh=None,
              x0: Optional[torch.Tensor] = None, tol: float = 1e-6,
              maxiter: int = 1000,
              precondition: bool = True,
@@ -139,8 +139,10 @@ def cg_solve(M, b: torch.Tensor, *, plan=None, cache=None,
     measurement-free heuristic; either way a cache hit skips everything,
     including the schedule artifact — no re-pack).  ``b`` of shape (n, r) runs block CG through
     one batched SpMM per iteration.  ``b`` and ``x0`` are moved to
-    ``device`` (default: the card).  Returns ``(SolveResult, operator)`` —
-    the operator exposes the concrete plan it ran as ``op.plan`` and the
+    ``device`` (default: the card).  A ``strategy='mesh'`` plan solves
+    through a :class:`~repro_torch.serve.executor.MeshExecutor` on ``mesh``
+    (a ``ShardMesh``; without one only a one-shard plan runs).  Returns ``(SolveResult, operator)`` — the
+    operator exposes the concrete plan it ran as ``op.plan`` and the
     artifact as ``op.schedule``.
     """
     from repro_torch.core import tuner as _tuner
@@ -151,7 +153,11 @@ def cg_solve(M, b: torch.Tensor, *, plan=None, cache=None,
             tune_kw["device"] = device
         plan = _tuner.plan_for(M, cache=cache, autotune=autotune,
                                **tune_kw)
-    op = SpmvOperator.from_plan(M, plan, device=device, cache=cache)
+    if plan.strategy == "mesh":
+        from repro_torch.serve.executor import MeshExecutor
+        op = MeshExecutor(M, plan, mesh=mesh, cache=cache, device=device)
+    else:
+        op = SpmvOperator.from_plan(M, plan, device=device, cache=cache)
     b = b.to(op.device)
     res = cg(op, b, x0=None if x0 is None else x0.to(op.device), tol=tol,
              maxiter=maxiter, diag=M.ad if precondition else None)

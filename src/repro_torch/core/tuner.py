@@ -27,14 +27,19 @@ the device, and remember the winner.
                              other
   tune / plan_for            the tuning entry points used by solvers, the
                              serve engine and chip_smoke.py
+  mesh_fingerprint, enumerate_mesh_plans, heuristic_mesh_plan,
+  tune_mesh / mesh_plan_for  the mesh-aware mode: strategy='mesh' plans per
+                             shard count, one winner per (matrix class, p)
 
 ``tune`` ranks the pool with the cost model's card pricing
 (``roofline.cost_model.rank_card_plans``, denominators measured on the
 device by ``calibrate``), measures the cheapest plans on the device with
-``device.time_fn`` and stores the winner's schedule next to its plan.  The
-mesh-aware mode (``mesh_ps``, ``tune_mesh``) needs the mesh layer, which
-is not in this package yet: a non-empty ``mesh_ps`` raises
-``NotImplementedError``.
+``device.time_fn`` and stores the winner's schedule next to its plan.
+``tune(mesh_ps=...)`` / ``tune_mesh`` measure every distributed candidate
+of the JAX package's enumeration on a :class:`~repro_torch.core.
+distributed.ShardMesh` (the p shards emulated on one device unless a
+process-group mesh is given) with the same timer, and ship the winner's
+shard layouts through the cache.
 
 Windowed candidates with ``value_dtype='bfloat16'`` (enumerated only for
 numerically-symmetric matrices) additionally pass an accuracy check
@@ -100,6 +105,12 @@ def fingerprint(M: CSRC) -> str:
     h.update(bytes([int(M.numerically_symmetric)]))
     band = csrc_bandwidth(M)
     return f"n{M.n}m{M.m}k{M.k}b{band}-{h.hexdigest()[:12]}"
+
+
+def mesh_fingerprint(fp: str, p: int) -> str:
+    """Cache key of the per-(matrix class, mesh width) distributed tuning
+    decision — the mesh-aware mode records one winner per (matrix, p)."""
+    return f"{fp}@p{p}"
 
 
 def _distributed_fields(stats: MatrixStats, p_hint: int = 8):
@@ -193,6 +204,92 @@ def heuristic_plan(stats: MatrixStats, tm: int = 128,
 
 
 # ---------------------------------------------------------------------------
+# Mesh-aware candidate enumeration (strategy='mesh' plans per shard count)
+# ---------------------------------------------------------------------------
+
+# A distributed candidate is dropped when its estimated collective traffic
+# exceeds this multiple of the shard's compute-stream bytes (working set /
+# p): past that point the product is collective-bound by construction
+# (Schubert et al., arXiv:0910.4836).
+MESH_COLLECTIVE_RATIO = 4.0
+
+
+def _halo_fits(stats: MatrixStats, p: int) -> bool:
+    ns = -(-stats.n // p)
+    ns = (ns + 7) // 8 * 8
+    h = max(8, (stats.bandwidth + 7) // 8 * 8)
+    return h <= ns
+
+
+def enumerate_mesh_plans(stats: MatrixStats, p: int,
+                         tms=(32, 128),
+                         k_steps_sublanes=(8,),
+                         w_cap: int = 4096,
+                         nrhs_options=(1,),
+                         index_dtypes=("int32", "int16"),
+                         max_collective_ratio: float = MESH_COLLECTIVE_RATIO
+                         ) -> List[ExecutionPlan]:
+    """Distributed candidate plans for a p-way mesh — the JAX package's
+    list, plan for plan and in order.
+
+    Shard-local compute comes from ``segment`` and every registered path
+    with ShardSupport (``flat`` past the skew gate, ``nnzsplit`` past the
+    unstructured gate), float32 values only, crossed with every
+    accumulation whose collective footprint passes the gate: ``halo`` only
+    when the band fits inside one shard, and any strategy only when
+    ``collective_bytes_from_stats`` stays within ``max_collective_ratio``
+    times the shard's working-set bytes."""
+    from .distributed import collective_bytes_from_stats
+
+    if stats.n != stats.m or p < 1:
+        return []                 # the strategies shard square rows
+    partition = "nnz" if stats.nnz_row_dev > 0 else "count"
+    space = paths_mod.CandidateSpace(
+        tms=tuple(tms), k_steps_sublanes=tuple(k_steps_sublanes),
+        w_cap=w_cap, partition=partition,
+        index_dtypes=tuple(index_dtypes), value_dtypes=("float32",))
+    bases: List[ExecutionPlan] = []
+    for entry in paths_mod.registered_paths():
+        if entry.name != "segment" and entry.shard_support is None:
+            continue
+        for cand in entry.candidates(stats, space):
+            if feasible(cand, n=stats.n, m=stats.m,
+                        bandwidth=stats.bandwidth):
+                bases.append(cand)
+    shard_ws = max(1, stats.working_set_bytes // p)
+    out: List[ExecutionPlan] = []
+    for acc in ("halo", "reduce_scatter", "allreduce"):
+        if acc == "halo" and not _halo_fits(stats, p):
+            continue
+        for r in nrhs_options:
+            est = collective_bytes_from_stats(
+                stats.n, stats.bandwidth, p, acc, nrhs=r)
+            if est > max_collective_ratio * shard_ws:
+                continue          # collective-bound by construction
+            for base in bases:
+                out.append(dataclasses.replace(
+                    base, strategy="mesh", mesh_p=p, accumulation=acc,
+                    nrhs=r))
+    return out
+
+
+def heuristic_mesh_plan(stats: MatrixStats, p: int,
+                        w_cap: int = 4096) -> ExecutionPlan:
+    """Measurement-free distributed plan: ``segment`` shard compute with
+    the collective-bytes model's strategy (halo when the band fits inside a
+    shard, else reduce_scatter).  Raises ValueError for rectangular
+    matrices: the strategies shard square rows only."""
+    if stats.n != stats.m:
+        raise ValueError(
+            "distributed strategies shard square matrices only; serve "
+            "rectangular matrices through a local plan")
+    partition = "nnz" if stats.nnz_row_dev > 0 else "count"
+    acc = "halo" if _halo_fits(stats, p) else "reduce_scatter"
+    return ExecutionPlan(path="segment", w_cap=w_cap, partition=partition,
+                         accumulation=acc, strategy="mesh", mesh_p=p)
+
+
+# ---------------------------------------------------------------------------
 # Plan cache
 # ---------------------------------------------------------------------------
 
@@ -236,6 +333,9 @@ class PlanCache:
         self.assembly_schedules: Dict[str, object] = {}
         self.assembly_hits = 0
         self.assembly_misses = 0
+        self.shard_layouts: Dict[str, object] = {}
+        self.shard_layout_hits = 0
+        self.shard_layout_misses = 0
         if path is not None and os.path.exists(path):
             self._read(path)
 
@@ -399,6 +499,44 @@ class PlanCache:
                 return sched
         return None
 
+    # ---- shard layouts of the mesh strategies (ShardedSlots / HaloLayout
+    # and the paths' shard packs), stored beside the schedules and keyed by
+    # (fingerprint, value digest, p, kind, geometry) — the npz layer that
+    # ships per-shard artifacts to serving workers ----
+
+    def get_shard_layout(self, key: str):
+        """The cached shard layout for this key, or None.  Memory first,
+        then the npz beside the plans — a hit means zero per-shard pack or
+        layout construction."""
+        from .schedule import load_shard_layout_npz
+        lay = self.shard_layouts.get(key)
+        if lay is None:
+            d = self._schedule_dir()
+            f = None if d is None else os.path.join(d, key + ".npz")
+            if f is not None and os.path.exists(f):
+                try:
+                    lay = load_shard_layout_npz(f)
+                except Exception:     # stale version / truncated: rebuild
+                    lay = None
+                if lay is not None:
+                    self.shard_layouts[key] = lay
+        if lay is None:
+            self.shard_layout_misses += 1
+            obs.counter("plan_cache_lookups_total", kind="shard_layout",
+                        outcome="miss").inc()
+            return None
+        self.shard_layout_hits += 1
+        obs.counter("plan_cache_lookups_total", kind="shard_layout",
+                    outcome="hit").inc()
+        return lay
+
+    def put_shard_layout(self, key: str, lay, persist: bool = True):
+        from .schedule import save_shard_layout_npz
+        self.shard_layouts[key] = lay
+        d = self._schedule_dir()
+        if persist and d is not None:
+            save_shard_layout_npz(os.path.join(d, key + ".npz"), lay)
+
     # ---- assembly schedules (repro_torch.assembly.scatter), stored beside
     # the SpMV schedules and keyed by connectivity digest ----
 
@@ -506,8 +644,8 @@ class TuneResult:
     fingerprint: str
     timings_s: Dict[str, float]   # plan.key() -> seconds; empty on cache hit
     cached: bool
-    # per-p distributed winners of the mesh-aware mode (always empty here:
-    # it needs the mesh layer)
+    # per-p distributed winners when tune() ran with mesh_ps (empty
+    # otherwise); also recorded in the cache under mesh_fingerprint keys
     mesh_plans: Dict[int, ExecutionPlan] = dataclasses.field(
         default_factory=dict)
     # predict-then-measure provenance: plan.key() -> card-priced seconds
@@ -562,7 +700,8 @@ def tune(M: CSRC,
          predict: bool = True,
          measure_top_k: Optional[int] = None,
          nrhs_options=(1,),
-         mesh_ps=()) -> TuneResult:
+         mesh_ps=(),
+         mesh=None) -> TuneResult:
     """Rank candidates by card pricing, measure the cheapest on ``device``
     (default the card) and return the argmin plan.
 
@@ -599,26 +738,45 @@ def tune(M: CSRC,
     Candidates with a reduced ``value_dtype`` must first match the exact
     ``segment`` product within ``value_dtype_tol`` relative error.
     ``nrhs_options`` replicates every candidate per RHS block width; the
-    argmin is on per-column time.  ``mesh_ps`` (the mesh-aware mode)
-    raises ``NotImplementedError`` until the mesh layer is ported.
+    argmin is on per-column time.
+
+    ``mesh_ps`` is the mesh-aware mode: for every shard count listed,
+    :func:`tune_mesh` measures the distributed candidates (on ``mesh`` if
+    given; without one only p = 1 runs, ``placement.mesh_available``) and
+    records the per-(matrix, p) winner under ``mesh_fingerprint(fp, p)``;
+    a measured local entry in the cache then spares the local tuning.
     """
-    if mesh_ps:
-        raise NotImplementedError(
-            "mesh-aware tuning (mesh_ps) needs the mesh layer of the port "
-            "(ROADMAP A15); tune locally with mesh_ps=()")
+    dev = device_mod.resolve(device)
+    fp = fingerprint(M)
+    hit = None
+    if cache is not None:
+        # a heuristic (unmeasured) entry must not satisfy a tune request
+        hit = cache.get(fp, require_measured=True)
+    if hit is not None:
+        res = TuneResult(plan=hit, fingerprint=fp, timings_s={},
+                         cached=True)
+    else:
+        res = _tune_local(M, fp, cache, x, candidates, measure, warmup,
+                          repeats, dev, save, value_dtype_tol, predict,
+                          measure_top_k, nrhs_options)
+    if not mesh_ps:
+        return res
+    mesh_plans = {p: tune_mesh(M, p, cache=cache, mesh=mesh, x=x,
+                               measure=measure, warmup=warmup,
+                               repeats=repeats, device=dev, save=save,
+                               nrhs_options=nrhs_options).plan
+                  for p in mesh_ps}
+    return dataclasses.replace(res, mesh_plans=mesh_plans)
+
+
+def _tune_local(M, fp, cache, x, candidates, measure, warmup, repeats, dev,
+                save, value_dtype_tol, predict, measure_top_k,
+                nrhs_options) -> TuneResult:
+    """:func:`tune`'s local mode after its cache probe missed."""
     from repro_torch.kernels import ref as ref_mod
     from repro_torch.kernels.ops import SpmvOperator
     from repro_torch.roofline import cost_model
     from . import schedule as schedule_mod
-
-    dev = device_mod.resolve(device)
-    fp = fingerprint(M)
-    if cache is not None:
-        # a heuristic (unmeasured) entry must not satisfy a tune request
-        hit = cache.get(fp, require_measured=True)
-        if hit is not None:
-            return TuneResult(plan=hit, fingerprint=fp, timings_s={},
-                              cached=True)
 
     stats = stats_of(M)
     cands = (candidates if candidates is not None
@@ -788,6 +946,127 @@ def plan_for(M: CSRC,
         if hit is not None:
             return hit
     plan = heuristic_plan(stats_of(M))
+    if cache is not None:
+        cache.put(fp, plan)
+        if cache.path is not None:
+            cache.save()
+    return plan
+
+
+def _mesh_for(p: int, mesh, device):
+    """``mesh`` checked against the width ``p``; without one, a one-shard
+    mesh on ``device`` where ``placement.mesh_available`` says so, else
+    ValueError: the shards of a wider mesh are never spread over the
+    devices a count suggests, nor piled on one device unasked."""
+    from .distributed import ShardMesh
+    if mesh is not None:
+        if mesh.p != p:
+            raise ValueError(f"mesh has {mesh.p} shards, the plan {p}")
+        return mesh
+    from repro_torch.serve import placement
+    if not placement.mesh_available(p, device):
+        raise ValueError(
+            f"a {p}-shard mesh needs one device per shard, and a process "
+            f"drives one of the {placement.device_count(device)} devices it "
+            f"sees; pass mesh=ShardMesh({p}, device) to emulate the shards "
+            "on it, or backend='process_group' for one per rank")
+    return ShardMesh(p, device)
+
+
+def tune_mesh(M: CSRC, p: int,
+              cache: Optional[PlanCache] = None,
+              mesh=None,
+              x=None,
+              candidates: Optional[List[ExecutionPlan]] = None,
+              measure: Optional[Callable] = None,
+              warmup: int = 1,
+              repeats: int = 3,
+              device=None,
+              save: bool = True,
+              nrhs_options=(1,)) -> TuneResult:
+    """The mesh-aware tuning mode: measure the distributed candidates on a
+    p-shard :class:`~repro_torch.core.distributed.ShardMesh` and cache the
+    per-(matrix, p) winner under ``mesh_fingerprint(fingerprint(M), p)``,
+    beside the local decision for the same class.
+
+    ``nrhs_options`` replicates the candidates per RHS block width as in
+    :func:`tune` (argmin on per-column time).  Each candidate is built
+    without the cache and timed by ``measure(fn, x) -> seconds`` (default
+    ``device.time_fn``, CUDA events on the card); the winner's schedule and
+    shard layouts are then shipped through ``cache``.  Without ``mesh`` only
+    p = 1 runs (``placement.mesh_available``)."""
+    from .distributed import build_sharded_spmv
+
+    fp = mesh_fingerprint(fingerprint(M), p)
+    if cache is not None:
+        hit = cache.get(fp, require_measured=True)
+        if hit is not None:
+            return TuneResult(plan=hit, fingerprint=fp, timings_s={},
+                              cached=True)
+    mesh = _mesh_for(p, mesh, device)
+    stats = stats_of(M)
+    cands = (candidates if candidates is not None
+             else enumerate_mesh_plans(stats, p,
+                                       nrhs_options=tuple(nrhs_options)))
+    if not cands:
+        raise ValueError(
+            f"no feasible distributed plan for this matrix at p={p}")
+    if measure is None:
+        def measure(fn, xv):
+            return device_mod.time_fn(fn, xv, warmup=warmup,
+                                      repeats=repeats)
+    x_for = _rhs_pool(M, x, mesh.device)
+
+    timings: Dict[str, float] = {}
+    best_plan, best_t = None, float("inf")
+    for cand in cands:
+        try:
+            # measured WITHOUT the cache: only the argmin's artifacts are
+            # shipped (below)
+            fn = build_sharded_spmv(M, mesh, strategy="auto", cache=None,
+                                    plan=cand)
+        except ValueError:
+            continue              # halo band gate / window over cap
+        with obs.span("tune.measure_mesh", plan=cand.key(), p=p):
+            t = float(measure(fn, x_for(cand.nrhs)))
+        del fn
+        obs.counter("tuner_candidates_measured_total").inc()
+        timings[cand.key()] = t
+        t_norm = t / cand.nrhs
+        if t_norm < best_t:
+            best_plan, best_t = cand, t_norm
+    if best_plan is None:
+        raise ValueError(
+            f"no distributed candidate survived measurement at p={p}")
+    if cache is not None:
+        cache.put(fp, best_plan, timings)
+        # ship the winner's schedule and shard layouts (the builders serve
+        # the memoized build and persist it)
+        build_sharded_spmv(M, mesh, strategy="auto", cache=cache,
+                           plan=best_plan)
+        if save and cache.path is not None:
+            cache.save()
+    return TuneResult(plan=best_plan, fingerprint=fp, timings_s=timings,
+                      cached=False)
+
+
+def mesh_plan_for(M: CSRC, p: int,
+                  cache: Optional[PlanCache] = None,
+                  autotune: bool = False,
+                  **tune_kw) -> ExecutionPlan:
+    """The distributed plan to serve this matrix with on a p-shard mesh:
+    :func:`plan_for` for the per-(matrix, p) keys.  A hit wins;
+    ``autotune=True`` measures (:func:`tune_mesh` with ``tune_kw``, such as
+    ``mesh=``, ``device=`` or ``nrhs_options=``); ``autotune=False`` takes
+    the collective-bytes heuristic (cached, so the decision is stable)."""
+    if autotune:
+        return tune_mesh(M, p, cache=cache, **tune_kw).plan
+    fp = mesh_fingerprint(fingerprint(M), p)
+    if cache is not None:
+        hit = cache.get(fp)
+        if hit is not None:
+            return hit
+    plan = heuristic_mesh_plan(stats_of(M), p)
     if cache is not None:
         cache.put(fp, plan)
         if cache.path is not None:

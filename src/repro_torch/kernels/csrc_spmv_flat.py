@@ -55,8 +55,10 @@ import numpy as np
 import torch
 
 from repro_torch.core.blockell import (_round_up, check_slot_order,
-                                       overlap_add, pad_x)
+                                       move_layout, overlap_add, pad_x)
 from repro_torch.core.csrc import CSRC, _np, bandwidth, row_of_slot
+from repro_torch.core.partition import (halo_diagonal, halo_geometry,
+                                        halo_slot_spans, shard_diagonal)
 from repro_torch.core.plan import LANES, VARIANTS
 from . import _build
 from ._build import _I, _P
@@ -201,27 +203,36 @@ def _step_layout(ros: np.ndarray, *, nt: int, tm: int, step: int):
 
 
 def _flat_arrays(ros, ja, al, au, *, nt: int, tm: int, w_pad: int,
-                 step: int):
-    """Fill the flat step arrays for one slot set; every tile gets at least
-    one k-step.  Returns (vals_l, vals_u, col_local, row_in_win) as
-    (total, step) arrays, tile_of_step, first_of_tile and total."""
+                 step: int, pad_steps_to: Optional[int] = None):
+    """Fill the flat step arrays for one slot set (rows and columns global
+    or shard-local: every slot's column lies inside its tile's window);
+    every tile gets at least one k-step.  ``pad_steps_to`` appends inert
+    trailing steps — zero values, sentinel indices, assigned to the last
+    tile with ``first_of_tile`` 0 — to equalize the shards of a stacked
+    layout.  Returns (vals_l, vals_u, col_local, row_in_win) as
+    (steps, step) arrays, tile_of_step, first_of_tile and the real step
+    count."""
     tile, flat, nk, starts = _step_layout(ros, nt=nt, tm=tm, step=step)
     total = int(starts[-1])
+    steps = total if pad_steps_to is None else int(pad_steps_to)
+    if steps < total:
+        raise ValueError(f"pad_steps_to {steps} < required steps {total}")
     win_lo = ((np.arange(nt, dtype=np.int64) + 1) * tm - w_pad)[tile]
 
-    vals_l = np.zeros(total * step, np.float32)
-    vals_u = np.zeros(total * step, np.float32)
-    col_local = np.full(total * step, w_pad, np.int32)       # sentinel
-    row_in_win = np.full(total * step, w_pad - 1, np.int32)  # inert
+    vals_l = np.zeros(steps * step, np.float32)
+    vals_u = np.zeros(steps * step, np.float32)
+    col_local = np.full(steps * step, w_pad, np.int32)       # sentinel
+    row_in_win = np.full(steps * step, w_pad - 1, np.int32)  # inert
     vals_l[flat] = al
     vals_u[flat] = au
     col_local[flat] = ja - win_lo
     row_in_win[flat] = ros - win_lo
-    tile_of_step = np.repeat(np.arange(nt, dtype=np.int32), nk)
-    first = np.zeros(total, np.int32)
+    tile_of_step = np.full(steps, nt - 1, np.int32)
+    tile_of_step[:total] = np.repeat(np.arange(nt, dtype=np.int32), nk)
+    first = np.zeros(steps, np.int32)
     first[starts[:-1]] = 1
-    return (vals_l.reshape(total, step), vals_u.reshape(total, step),
-            col_local.reshape(total, step), row_in_win.reshape(total, step),
+    return (vals_l.reshape(steps, step), vals_u.reshape(steps, step),
+            col_local.reshape(steps, step), row_in_win.reshape(steps, step),
             tile_of_step, first, total)
 
 
@@ -484,3 +495,317 @@ def flat_spmm(pack: FlatBlockEll, X: torch.Tensor,
     """Y = A @ X for X (n, B) — the multi-RHS flat-grid product (batched
     serving / block-Krylov shape); returns (n, B)."""
     return overlap_add(pack, flat_spmm_windows(pack, X, variant=variant))
+
+
+# ---------------------------------------------------------------------------
+# Shard layouts for the mesh strategies (core/distributed.py), built through
+# core/schedule.py's memoized builders
+# ---------------------------------------------------------------------------
+
+_SHARD_STREAMS = ("vals_l", "vals_u", "col_local", "row_in_win", "ad",
+                  "tile_of_step", "first_of_tile")
+
+
+def _stack_shard_packs(slot_sets, *, nt, tm, w_pad, step, num_symmetric,
+                       dtype=torch.float32, index_dtype=torch.int32):
+    """One flat pack per shard, stacked on a leading shard axis.
+
+    ``slot_sets`` holds (ros, ja, al, au) per shard.  Step counts are
+    equalized across shards by padding every shard to the widest with inert
+    trailing steps (``_flat_arrays(pad_steps_to=)``).  Returns the uniform
+    step count, the stacked tensors and each shard's real step count."""
+    per_shard = []
+    for ros, _, _, _ in slot_sets:
+        counts = np.bincount(ros // tm, minlength=nt)
+        per_shard.append(int(np.maximum(1, -(-counts // step)).sum()))
+    steps = max(per_shard)
+    p = len(slot_sets)
+    vl = np.empty((p, steps, step), np.float32)
+    vu = vl if num_symmetric else np.empty((p, steps, step), np.float32)
+    cl = np.empty((p, steps, step), np.int32)
+    rw = np.empty((p, steps, step), np.int32)
+    tos = np.empty((p, steps), np.int32)
+    first = np.empty((p, steps), np.int32)
+    for t, (ros, ja, al, au) in enumerate(slot_sets):
+        (vl[t], vu_t, cl[t], rw[t], tos[t], first[t], _) = _flat_arrays(
+            ros, ja, al, au, nt=nt, tm=tm, w_pad=w_pad, step=step,
+            pad_steps_to=steps)
+        if not num_symmetric:
+            vu[t] = vu_t
+    vl_t = torch.from_numpy(vl).to(dtype)
+    arrays = dict(
+        vals_l=vl_t,
+        vals_u=vl_t if num_symmetric else torch.from_numpy(vu).to(dtype),
+        col_local=torch.from_numpy(cl).to(index_dtype),
+        row_in_win=torch.from_numpy(rw).to(index_dtype),
+        tile_of_step=torch.from_numpy(tos),
+        first_of_tile=torch.from_numpy(first))
+    return steps, arrays, per_shard
+
+
+def real_step_count(col_local: torch.Tensor, first_of_tile: torch.Tensor,
+                    vals_l: torch.Tensor, vals_u: torch.Tensor,
+                    w_pad: int) -> int:
+    """The steps of one shard's stacked pack before its inert tail.
+
+    A trailing step is inert when it starts no tile, holds no real slot
+    (every column is the sentinel ``w_pad``) and carries zero values: it
+    adds only ``0·x`` terms.  The kernels then end the last tile's step
+    range here, so a light shard's padding is never walked (the tail all
+    belongs to the last tile, whose steps one block runs in turn).  Raises
+    ValueError when a step past the last live one carries a value."""
+    live = (col_local != w_pad).any(dim=1) | (first_of_tile != 0)
+    last = torch.nonzero(live).flatten()
+    used = int(last[-1]) + 1 if last.numel() else 0
+    if bool((vals_l[used:] != 0).any()) or bool((vals_u[used:] != 0).any()):
+        raise ValueError("inert trailing steps must carry zero values")
+    return used
+
+
+def _shard_view(lay, t: int, n: int) -> FlatBlockEll:
+    """Shard t of a stacked flat layout as a FlatBlockEll of views.  The
+    slot order and the step ranges are checked here, once per shard; the
+    last tile's range ends at the shard's real step count
+    (:func:`real_step_count`)."""
+    col, row = lay.col_local[t], lay.row_in_win[t]
+    tile, first = lay.tile_of_step[t], lay.first_of_tile[t]
+    vl = lay.vals_l[t]
+    vu = vl if lay.vals_u is lay.vals_l else lay.vals_u[t]
+    check_slot_order(row, col, lay.w_pad)
+    starts = step_ranges(tile, first, lay.nt)
+    starts[-1] = real_step_count(col, first, vl, vu, lay.w_pad)
+    return FlatBlockEll(
+        n=n, tm=lay.tm, nt=lay.nt, w_pad=lay.w_pad, total_steps=lay.steps,
+        ks=lay.ks, vals_l=vl, vals_u=vu, col_local=col, row_in_win=row,
+        ad=lay.ad[t], tile_of_step=tile, first_of_tile=first,
+        num_symmetric=lay.num_symmetric, pad_ratio=1.0,
+        step_start=starts.to(tile.device))
+
+
+def _reference_shapes(lay) -> dict:
+    """The JAX package's (p, steps, ks, 128) layout of the slot streams."""
+    shape = (lay.p, lay.steps, lay.ks, LANES)
+    return {f: shape for f in ("vals_l", "vals_u", "col_local",
+                               "row_in_win")}
+
+
+@dataclasses.dataclass(frozen=True)
+class FlatShards:
+    """Per-shard flat sub-packs of one matrix in *global* coordinates
+    (allreduce / reduce_scatter): shard t's pack holds only the slots of its
+    partition rows and its slice of the diagonal, and spans all NT tiles
+    (one inert step for each tile it does not own), so its product is a
+    full-length partial y.  Streams are stacked (p, steps, ks·128)."""
+    p: int
+    n: int
+    tm: int
+    nt: int
+    w_pad: int
+    steps: int                  # uniform k-steps per shard (padded)
+    ks: int
+    vals_l: torch.Tensor        # (p, steps, step)
+    vals_u: torch.Tensor        # (p, steps, step)  (is vals_l if symmetric)
+    col_local: torch.Tensor     # (p, steps, step)
+    row_in_win: torch.Tensor    # (p, steps, step)
+    ad: torch.Tensor            # (p, NT, TM) shard-owned diagonal
+    tile_of_step: torch.Tensor  # (p, steps) int32
+    first_of_tile: torch.Tensor  # (p, steps) int32
+    num_symmetric: bool
+
+    def shard_pack(self, t: int) -> FlatBlockEll:
+        """Shard t's pack as a FlatBlockEll of views (checked once)."""
+        return _shard_view(self, t, self.n)
+
+    def to(self, device) -> "FlatShards":
+        return move_layout(self, _SHARD_STREAMS, device)
+
+    def reference_shapes(self) -> dict:
+        return _reference_shapes(self)
+
+
+@dataclasses.dataclass(frozen=True)
+class FlatHalo:
+    """Per-shard flat packs in *local* halo coordinates (the paper's
+    effective accumulation): shard t owns ns rows, and its local matrix
+    covers rows [r0-h, r1) of y — n_local = ns + h rows, the h halo rows
+    first, the y_ext / x_ext layout of ``schedule.build_halo_layout`` run
+    by the flat kernels."""
+    p: int
+    ns: int                     # rows per shard (8-aligned)
+    h: int                      # halo width (8-aligned bandwidth)
+    n_local: int                # ns + h
+    tm: int
+    nt: int                     # local row tiles: ceil(n_local / tm)
+    w_pad: int
+    steps: int
+    ks: int
+    vals_l: torch.Tensor        # (p, steps, step)
+    vals_u: torch.Tensor
+    col_local: torch.Tensor
+    row_in_win: torch.Tensor
+    ad: torch.Tensor            # (p, NT, TM) local-coordinate diagonal
+    tile_of_step: torch.Tensor
+    first_of_tile: torch.Tensor
+    num_symmetric: bool
+
+    def shard_pack(self, t: int) -> FlatBlockEll:
+        return _shard_view(self, t, self.n_local)
+
+    def to(self, device) -> "FlatHalo":
+        return move_layout(self, _SHARD_STREAMS, device)
+
+    def reference_shapes(self) -> dict:
+        return _reference_shapes(self)
+
+
+def _window(M: CSRC, band: int, tm: int, w_cap: int, index_dtype) -> int:
+    w_pad = _round_up(tm + band, max(128, tm))
+    if index_dtype == torch.int16 and w_pad + 1 > 32767:
+        raise ValueError(f"window {w_pad} overflows int16 indices")
+    if w_pad > w_cap:
+        raise ValueError(f"window {w_pad} > cap {w_cap}")
+    return w_pad
+
+
+def _slots(M: CSRC):
+    return (row_of_slot(M), _np(M.ja).astype(np.int64), _np(M.al),
+            _np(M.au))
+
+
+def _partition_spans(M: CSRC, starts):
+    """Lower-slot range of each shard of the row partition ``starts``
+    (slots are row-major)."""
+    ia = _np(M.ia).astype(np.int64)
+    return [(int(ia[starts[t]]), int(ia[starts[t + 1]]))
+            for t in range(len(starts) - 1)]
+
+
+def pack_flat_shards(M: CSRC, starts, tm: int = 128, ks: int = 8,
+                     w_cap: int = 4096, dtype=torch.float32,
+                     index_dtype=torch.int32) -> FlatShards:
+    """Split a square CSRC matrix into per-shard flat packs along the row
+    partition ``starts`` ((p+1,) boundaries from the schedule layer).  The
+    arrays are the JAX package's ``pack_flat_shards``'."""
+    if not M.is_square:
+        raise ValueError("the flat shards pack the square CSRC part only")
+    n = M.n
+    w_pad = _window(M, bandwidth(M), tm, w_cap, index_dtype)
+    nt = max(1, -(-n // tm))
+    starts = np.asarray(starts, dtype=np.int64)
+    p = starts.shape[0] - 1
+    ros, ja, al, au = _slots(M)
+    steps, arrays, _ = _stack_shard_packs(
+        [(ros[s:e], ja[s:e], al[s:e], au[s:e])
+         for s, e in _partition_spans(M, starts)],
+        nt=nt, tm=tm, w_pad=w_pad, step=ks * LANES,
+        num_symmetric=M.numerically_symmetric, dtype=dtype,
+        index_dtype=index_dtype)
+    ad = shard_diagonal(M, starts, nt * tm)
+    return FlatShards(
+        p=p, n=n, tm=tm, nt=nt, w_pad=w_pad, steps=steps, ks=ks,
+        ad=torch.from_numpy(ad.reshape(p, nt, tm)).to(dtype),
+        num_symmetric=bool(M.numerically_symmetric), **arrays)
+
+
+def pack_flat_halo(M: CSRC, p: int, tm: int = 128, ks: int = 8,
+                   w_cap: int = 4096, dtype=torch.float32,
+                   index_dtype=torch.int32) -> FlatHalo:
+    """Per-shard local flat packs for the halo strategy (the JAX package's
+    ``pack_flat_halo``, array for array).  Raises ValueError when the band
+    does not fit inside one shard or the local window exceeds ``w_cap``."""
+    if not M.is_square:
+        raise ValueError("the flat halo packs the square CSRC part only")
+    n = M.n
+    ns, h = halo_geometry(M, p)
+    n_local = ns + h
+    # every local row i stores columns in [i-h, i]: local bandwidth <= h
+    w_pad = _window(M, h, tm, w_cap, index_dtype)
+    nt = max(1, -(-n_local // tm))
+    ros, ja, al, au = _slots(M)
+    sets = []
+    for t, (s, e) in enumerate(halo_slot_spans(M, p, ns)):
+        # local row r0+i -> h+i; column j -> j - (r0 - h)
+        sets.append((ros[s:e] - t * ns + h, ja[s:e] - (t * ns - h),
+                     al[s:e], au[s:e]))
+    steps, arrays, _ = _stack_shard_packs(
+        sets, nt=nt, tm=tm, w_pad=w_pad, step=ks * LANES,
+        num_symmetric=M.numerically_symmetric, dtype=dtype,
+        index_dtype=index_dtype)
+    ad = halo_diagonal(M, p, ns, h, nt * tm)
+    return FlatHalo(
+        p=p, ns=ns, h=h, n_local=n_local, tm=tm, nt=nt, w_pad=w_pad,
+        steps=steps, ks=ks,
+        ad=torch.from_numpy(ad.reshape(p, nt, tm)).to(dtype),
+        num_symmetric=bool(M.numerically_symmetric), **arrays)
+
+
+def _refill(lay, M: CSRC, row_sets, ad: np.ndarray):
+    """A stacked layout with its value streams refilled from per-shard
+    (rows, al, au) in build order; index streams and tile maps untouched.
+    The refilled streams land on the layout's device."""
+    if bool(M.numerically_symmetric) != lay.num_symmetric:
+        raise ValueError(
+            "numeric symmetry changed; rebuild instead of refreshing")
+    step = lay.ks * LANES
+    vl = np.empty((lay.p, lay.steps, step), np.float32)
+    vu = vl if lay.num_symmetric else np.empty_like(vl)
+    for t, (ros, al, au) in enumerate(row_sets):
+        vl_t, vu_t = _value_fill_steps(
+            ros, al, au, nt=lay.nt, tm=lay.tm, step=step, steps=lay.steps,
+            num_symmetric=lay.num_symmetric)
+        vl[t] = vl_t
+        if not lay.num_symmetric:
+            vu[t] = vu_t
+    vdtype, dev = lay.vals_l.dtype, lay.vals_l.device
+    vl_t = torch.from_numpy(vl).to(device=dev, dtype=vdtype)
+    return dataclasses.replace(
+        lay, vals_l=vl_t,
+        vals_u=vl_t if lay.num_symmetric else torch.from_numpy(vu).to(
+            device=dev, dtype=vdtype),
+        ad=torch.from_numpy(ad.reshape(lay.p, lay.nt, lay.tm)).to(
+            device=lay.ad.device, dtype=lay.ad.dtype))
+
+
+def refresh_flat_shards(fs: FlatShards, M: CSRC, starts) -> FlatShards:
+    """Refill a FlatShards stack's value streams from a same-structure
+    matrix over the same partition ``starts`` — no index stream, tile map
+    or step-count work."""
+    if not (M.is_square and M.n == fs.n):
+        raise ValueError("structure mismatch")
+    starts = np.asarray(starts, dtype=np.int64)
+    ros, _, al, au = _slots(M)
+    return _refill(fs, M, [(ros[s:e], al[s:e], au[s:e])
+                           for s, e in _partition_spans(M, starts)],
+                   shard_diagonal(M, starts, fs.nt * fs.tm))
+
+
+def refresh_flat_halo(lay: FlatHalo, M: CSRC) -> FlatHalo:
+    """Refill a FlatHalo stack's value streams from a same-structure matrix
+    (local halo rows re-derived from the layout's geometry)."""
+    if not M.is_square:
+        raise ValueError("structure mismatch")
+    ros, _, al, au = _slots(M)
+    sets = [(ros[s:e] - t * lay.ns + lay.h, al[s:e], au[s:e])
+            for t, (s, e) in enumerate(halo_slot_spans(M, lay.p, lay.ns))]
+    return _refill(lay, M, sets, halo_diagonal(M, lay.p, lay.ns, lay.h,
+                                                lay.nt * lay.tm))
+
+
+def flat_local_fn(lay, n_local: int, variant: str = "onehot"):
+    """Shard-local flat-grid product over a FlatShards or FlatHalo layout:
+    ``fn(t, x)`` runs shard t's product (SpMV or SpMM by x's rank) with the
+    plan's ``variant``.  The p shard packs are built here, once."""
+    packs = [lay.shard_pack(t) for t in range(lay.p)]
+    if any(pk.n != n_local for pk in packs):
+        raise ValueError(f"layout rows differ from n_local {n_local}")
+
+    def local_y(t: int, x: torch.Tensor) -> torch.Tensor:
+        if x.ndim == 2:
+            return flat_spmm(packs[t], x, variant=variant)
+        return flat_spmv(packs[t], x, variant=variant)
+
+    return local_y
+
+
+def flat_halo_dims(lay: FlatHalo):
+    return lay.ns, lay.h, lay.n_local

@@ -55,8 +55,10 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core.blockell import _round_up
+from repro_torch.core.blockell import _round_up, move_layout
 from repro_torch.core.csrc import CSRC, _np, row_of_slot
+from repro_torch.core.partition import (halo_diagonal, halo_geometry,
+                                        halo_slot_spans, shard_diagonal)
 from repro_torch.core.plan import LANES, VARIANTS
 from . import _build
 from ._build import _I, _P
@@ -177,22 +179,35 @@ def _combined_stream(M: CSRC):
     return dest, src, val
 
 
-def _chunk_arrays(dest, src, val, *, ks: int):
-    """Cut one dest-sorted stream into equal chunks of S = ks·128 entries.
-    Padding entries carry val 0, src 0 and the stream's last real row.
-    Returns the per-chunk numpy arrays, streams as (C, S)."""
-    s = ks * LANES
+def _padded_dest(dest, s: int, num_chunks=None):
+    """``dest`` padded with its last row to ``num_chunks`` (default: the
+    fewest) chunks of ``s`` entries, as (C, s), and the padding length."""
     kk = int(dest.shape[0])
-    nc = max(1, -(-kk // s))
+    need = max(1, -(-kk // s))
+    nc = need if num_chunks is None else int(num_chunks)
+    if nc < need:
+        raise ValueError(f"num_chunks {nc} < required {need}")
     pad = nc * s - kk
     fill_dest = int(dest[-1]) if kk else 0
     dest = np.concatenate([dest, np.full(pad, fill_dest, np.int64)])
+    return dest.reshape(nc, s), pad
+
+
+def _chunk_arrays(dest, src, val, *, ks: int, num_chunks=None, r_pad=None):
+    """Cut one dest-sorted stream into equal chunks of S = ks·128 entries.
+    ``num_chunks`` / ``r_pad`` force the geometry (to equalize the shards of
+    a stacked layout).  Padding entries carry val 0, src 0 and the stream's
+    last real row.  Returns the per-chunk numpy arrays, streams as (C, S)."""
+    s = ks * LANES
+    dest, pad = _padded_dest(dest, s, num_chunks)
+    nc = dest.shape[0]
     src = np.concatenate([src, np.zeros(pad, np.int64)])
     val = np.concatenate([val, np.zeros(pad, np.float32)])
-    dest = dest.reshape(nc, s)
     chunk_row0 = dest[:, 0].copy()
     span = int((dest[:, -1] - chunk_row0).max()) + 1
-    rp = _round_up(max(span, 1), LANES)
+    rp = _round_up(max(span, 1), LANES) if r_pad is None else int(r_pad)
+    if span > rp:
+        raise ValueError(f"chunk row span {span} > r_pad {rp}")
     lrow = (dest - chunk_row0[:, None]).astype(np.int32)
     fixup = (chunk_row0[:, None]
              + np.arange(rp, dtype=np.int64)[None, :]).reshape(-1)
@@ -481,3 +496,245 @@ def nnzsplit_spmm(pack: NnzSplitPack, X: torch.Tensor,
     """Y = A @ X for X (n, B): B-wide partials (K10 / K12), the fix-up and
     the diagonal; returns (n, B)."""
     return fixup(pack, _partials(pack, X, 2, variant), X)
+
+
+# ---------------------------------------------------------------------------
+# Shard layouts for the mesh strategies (core/distributed.py), built through
+# core/schedule.py's memoized builders
+# ---------------------------------------------------------------------------
+
+_SHARD_STREAMS = ("vals", "lrow", "src", "chunk_row0", "fixup_idx", "ad")
+
+
+def _stack_chunked(streams, *, ks: int, r_cap: int, n_check: int):
+    """Chunk one dest-sorted stream per shard with equalized (num_chunks,
+    r_pad) — the widest shard's chunk count and row window — and check each
+    shard's chunks (``check_chunk_streams``, rows below ``n_check``)."""
+    s = ks * LANES
+    nc = max(max(1, -(-int(d.shape[0]) // s)) for d, _, _ in streams)
+    rp = LANES
+    for d, _, _ in streams:
+        rows = _padded_dest(d, s, nc)[0]
+        span = int((rows[:, -1] - rows[:, 0]).max()) + 1
+        rp = max(rp, _round_up(span, LANES))
+    if rp > r_cap:
+        raise ValueError(f"chunk row window {rp} > cap {r_cap}")
+    parts = [_chunk_arrays(d, sr, v, ks=ks, num_chunks=nc, r_pad=rp)
+             for d, sr, v in streams]
+    for c in parts:
+        check_chunk_streams(c["lrow"], c["src"], c["chunk_row0"],
+                            c["fixup_idx"], n=n_check, r_pad=rp)
+    stacked = {key: np.stack([c[key] for c in parts])
+               for key in ("vals", "lrow", "src", "chunk_row0", "fixup_idx")}
+    return nc, rp, stacked
+
+
+def _as_shard_tensors(stacked, *, dtype, index_dtype):
+    return dict(
+        vals=torch.from_numpy(stacked["vals"]).to(dtype),
+        lrow=torch.from_numpy(stacked["lrow"]).to(index_dtype),
+        src=torch.from_numpy(stacked["src"]).to(index_dtype),
+        chunk_row0=torch.from_numpy(stacked["chunk_row0"]),
+        fixup_idx=torch.from_numpy(stacked["fixup_idx"]))
+
+
+def _shard_view(lay, t: int, n: int) -> NnzSplitPack:
+    return NnzSplitPack(
+        n=n, num_chunks=lay.num_chunks, ks=lay.ks, r_pad=lay.r_pad,
+        vals=lay.vals[t], lrow=lay.lrow[t], src=lay.src[t],
+        chunk_row0=lay.chunk_row0[t], fixup_idx=lay.fixup_idx[t],
+        ad=lay.ad[t], num_symmetric=lay.num_symmetric, pad_ratio=1.0)
+
+
+def _reference_shapes(lay) -> dict:
+    """The JAX package's layout: (p, C, ks, 128) vals / lrow, (p, C·S) src."""
+    shape = (lay.p, lay.num_chunks, lay.ks, LANES)
+    return {"vals": shape, "lrow": shape,
+            "src": (lay.p, lay.num_chunks * lay.ks * LANES)}
+
+
+@dataclasses.dataclass(frozen=True)
+class NnzSplitShards:
+    """Per-shard nnz-split sub-packs in *global* coordinates (allreduce /
+    reduce_scatter): shard t chunks only the combined entries whose dest row
+    it owns, plus its slice of the diagonal, and its product is a
+    full-length partial y.  Streams are stacked (p, C, S)."""
+    p: int
+    n: int
+    num_chunks: int             # uniform chunks per shard (padded)
+    ks: int
+    r_pad: int                  # the widest shard's row window
+    vals: torch.Tensor          # (p, C, S)
+    lrow: torch.Tensor          # (p, C, S)
+    src: torch.Tensor           # (p, C, S)
+    chunk_row0: torch.Tensor    # (p, C) int32
+    fixup_idx: torch.Tensor     # (p, C·r_pad) int32
+    ad: torch.Tensor            # (p, n) shard-owned diagonal, zero elsewhere
+    num_symmetric: bool
+
+    def shard_pack(self, t: int) -> NnzSplitPack:
+        return _shard_view(self, t, self.n)
+
+    def to(self, device) -> "NnzSplitShards":
+        return move_layout(self, _SHARD_STREAMS, device)
+
+    def reference_shapes(self) -> dict:
+        return _reference_shapes(self)
+
+
+@dataclasses.dataclass(frozen=True)
+class NnzSplitHalo:
+    """Per-shard nnz-split packs in *local* halo coordinates: both halves
+    of a slot go to the shard owning the slot's row (its columns then lie in
+    [r0-h, r1), the frame the halo exchange provides), and the local product
+    is an n_local = ns + h row vector, the halo rows first."""
+    p: int
+    ns: int
+    h: int
+    n_local: int
+    num_chunks: int
+    ks: int
+    r_pad: int
+    vals: torch.Tensor
+    lrow: torch.Tensor
+    src: torch.Tensor
+    chunk_row0: torch.Tensor
+    fixup_idx: torch.Tensor
+    ad: torch.Tensor            # (p, n_local) local-coordinate diagonal
+    num_symmetric: bool
+
+    def shard_pack(self, t: int) -> NnzSplitPack:
+        return _shard_view(self, t, self.n_local)
+
+    def to(self, device) -> "NnzSplitHalo":
+        return move_layout(self, _SHARD_STREAMS, device)
+
+    def reference_shapes(self) -> dict:
+        return _reference_shapes(self)
+
+
+def pack_nnzsplit_shards(M: CSRC, starts, ks: int = 8, r_cap: int = 4096,
+                         dtype=torch.float32,
+                         index_dtype=torch.int32) -> NnzSplitShards:
+    """Split the combined stream along the row partition ``starts``: shard
+    t takes the entries with dest in [starts[t], starts[t+1]) — one slice
+    of the dest-sorted stream.  The JAX package's arrays."""
+    if not M.is_square:
+        raise ValueError("the nnzsplit shards chunk the square CSRC part "
+                         "only")
+    n = M.n
+    if index_dtype == torch.int16 and n > 32767:
+        raise ValueError(f"n {n} overflows int16 gather indices")
+    starts = np.asarray(starts, dtype=np.int64)
+    p = starts.shape[0] - 1
+    dest, src, val = _combined_stream(M)
+    cuts = np.searchsorted(dest, starts)
+    streams = [(dest[cuts[t]:cuts[t + 1]], src[cuts[t]:cuts[t + 1]],
+                val[cuts[t]:cuts[t + 1]]) for t in range(p)]
+    nc, rp, stacked = _stack_chunked(streams, ks=ks, r_cap=r_cap, n_check=n)
+    return NnzSplitShards(
+        p=p, n=n, num_chunks=nc, ks=ks, r_pad=rp,
+        ad=torch.from_numpy(shard_diagonal(M, starts, n)).to(dtype),
+        num_symmetric=bool(M.numerically_symmetric),
+        **_as_shard_tensors(stacked, dtype=dtype, index_dtype=index_dtype))
+
+
+def _halo_streams(M: CSRC, p: int, ns: int, h: int, n_local: int):
+    """Per shard, the combined stream of its rows' slots in local
+    coordinates (global row g -> g - (t·ns - h)), dest-sorted in the order
+    of the JAX package's stable argsort."""
+    ros = row_of_slot(M).astype(np.int64)
+    ja = _np(M.ja).astype(np.int64)
+    al = _np(M.al).astype(np.float32, copy=False)
+    au = _np(M.au).astype(np.float32, copy=False)
+    out = []
+    for t, (s, e) in enumerate(halo_slot_spans(M, p, ns)):
+        off = t * ns - h
+        r, j = ros[s:e] - off, ja[s:e] - off
+        order = _dest_order(r, j, n_local)
+        out.append((np.concatenate([r, j])[order],
+                    np.concatenate([j, r])[order],
+                    np.concatenate([al[s:e], au[s:e]])[order]))
+    return out
+
+
+def pack_nnzsplit_halo(M: CSRC, p: int, ks: int = 8, r_cap: int = 4096,
+                       dtype=torch.float32,
+                       index_dtype=torch.int32) -> NnzSplitHalo:
+    """Per-shard local packs for the halo strategy.  The band-fits-shard
+    gate of the other halo builders applies: unstructured matrices (band
+    about n) fail it and take allreduce / reduce_scatter."""
+    if not M.is_square:
+        raise ValueError("the nnzsplit halo chunks the square CSRC part only")
+    ns, h = halo_geometry(M, p)
+    n_local = ns + h
+    if index_dtype == torch.int16 and n_local > 32767:
+        raise ValueError(f"n_local {n_local} overflows int16 indices")
+    nc, rp, stacked = _stack_chunked(_halo_streams(M, p, ns, h, n_local),
+                                     ks=ks, r_cap=r_cap, n_check=n_local)
+    return NnzSplitHalo(
+        p=p, ns=ns, h=h, n_local=n_local, num_chunks=nc, ks=ks, r_pad=rp,
+        ad=torch.from_numpy(halo_diagonal(M, p, ns, h, n_local)).to(dtype),
+        num_symmetric=bool(M.numerically_symmetric),
+        **_as_shard_tensors(stacked, dtype=dtype, index_dtype=index_dtype))
+
+
+def _refresh_stacked(lay, value_streams, ad_rows):
+    """``lay`` with ``vals`` (and the diagonal) refilled from per-shard
+    value streams in the layout's build order, on the layout's device."""
+    vals = np.zeros((lay.p, lay.num_chunks * lay.ks * LANES), np.float32)
+    for t, v in enumerate(value_streams):
+        if v.shape[0] > vals.shape[1]:
+            raise ValueError("structure mismatch: stream longer than pack")
+        vals[t, :v.shape[0]] = v
+    return dataclasses.replace(
+        lay,
+        vals=torch.from_numpy(vals.reshape(lay.vals.shape)).to(
+            device=lay.vals.device, dtype=lay.vals.dtype),
+        ad=torch.from_numpy(ad_rows).to(device=lay.ad.device,
+                                        dtype=lay.ad.dtype))
+
+
+def refresh_nnzsplit_shards(lay: NnzSplitShards, M: CSRC,
+                            starts) -> NnzSplitShards:
+    """Refill an NnzSplitShards stack's values from a same-structure
+    matrix over the same partition — no index stream touched."""
+    if not (M.is_square and M.n == lay.n):
+        raise ValueError("structure mismatch")
+    starts = np.asarray(starts, dtype=np.int64)
+    dest, _src, val = _combined_stream(M)
+    cuts = np.searchsorted(dest, starts)
+    return _refresh_stacked(
+        lay, [val[cuts[t]:cuts[t + 1]] for t in range(lay.p)],
+        shard_diagonal(M, starts, lay.n))
+
+
+def refresh_nnzsplit_halo(lay: NnzSplitHalo, M: CSRC) -> NnzSplitHalo:
+    """Refill an NnzSplitHalo stack's values from a same-structure matrix
+    (the local dest order re-derived from the layout's geometry)."""
+    if not M.is_square:
+        raise ValueError("structure mismatch")
+    streams = _halo_streams(M, lay.p, lay.ns, lay.h, lay.n_local)
+    return _refresh_stacked(
+        lay, [v for _, _, v in streams],
+        halo_diagonal(M, lay.p, lay.ns, lay.h, lay.n_local))
+
+
+def nnzsplit_local_fn(lay, n_local: int, variant: str = "onehot"):
+    """Shard-local nnz-split product over an NnzSplitShards or NnzSplitHalo
+    layout: ``fn(t, x)`` runs shard t's product (SpMV or SpMM by x's rank)
+    with the plan's ``variant``.  The p shard packs are built here, once."""
+    packs = [lay.shard_pack(t) for t in range(lay.p)]
+    if any(pk.n != n_local for pk in packs):
+        raise ValueError(f"layout rows differ from n_local {n_local}")
+
+    def local_y(t: int, x: torch.Tensor) -> torch.Tensor:
+        if x.ndim == 2:
+            return nnzsplit_spmm(packs[t], x, variant=variant)
+        return nnzsplit_spmv(packs[t], x, variant=variant)
+
+    return local_y
+
+
+def nnzsplit_halo_dims(lay: NnzSplitHalo):
+    return lay.ns, lay.h, lay.n_local

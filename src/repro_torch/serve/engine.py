@@ -72,9 +72,13 @@ class SpmvServingEngine:
     (serve/executor.py): ``strategy='local'`` plans run the single-device
     SpmvOperator on ``device`` (default: the card), with every schedule
     artifact served from the PlanCache npz layer — re-registering a known
-    matrix performs zero pack/partition work.  ``mesh_p`` is accepted for
-    parity with the JAX package; placement degrades it to local until the
-    mesh executor is ported.  ``step`` groups the queue by matrix and
+    matrix performs zero pack/partition work.  Construct with ``mesh_p=N``
+    to prefer the per-(matrix, p) mesh cache entries (``strategy='mesh'``
+    plans on a :class:`~repro_torch.serve.executor.MeshExecutor`): on
+    ``mesh=ShardMesh(N, ...)`` when given (the shards emulated on one card,
+    say; the engine's device is then the mesh's), else only for N = 1
+    (``placement.mesh_available``); placement degrades to local otherwise.  ``step``
+    groups the queue by matrix and
     answers each group with **one batched multi-RHS SpMM** through the
     chosen executor — never a loop of single products; results are
     :class:`SpmvResult` arrays carrying the plan/strategy metadata.
@@ -83,14 +87,16 @@ class SpmvServingEngine:
     def __init__(self, cache=None, autotune: bool = False,
                  device=None, max_batch: int = 64,
                  mesh_p: Optional[int] = None,
-                 serve_nrhs: Optional[int] = None):
+                 serve_nrhs: Optional[int] = None, mesh=None):
         from repro_torch import device as device_mod
         from repro_torch.core.tuner import PlanCache
         self.cache = cache if cache is not None else PlanCache()
         self.autotune = autotune
-        self.device = device_mod.resolve(device)
+        self.device = device_mod.resolve(
+            mesh.device if device is None and mesh is not None else device)
         self.max_batch = max_batch
         self.mesh_p = mesh_p
+        self.mesh = mesh
         # the batched operating point autotuning tunes at: coalesced
         # groups run as (n, B) SpMM blocks, so a plan must be measured at
         # a representative B, not at nrhs=1
@@ -117,16 +123,17 @@ class SpmvServingEngine:
             plan = placement.resolve_plan(
                 M, cache=self.cache, autotune=self.autotune,
                 mesh_p=self.mesh_p, nrhs=self.serve_nrhs,
-                device=self.device)
+                device=self.device, mesh=self.mesh)
         self._matrices[matrix_id] = M
         self._ops[matrix_id] = placement.build_executor(
-            M, plan, cache=self.cache, device=self.device)
+            M, plan, cache=self.cache, device=self.device, mesh=self.mesh)
         return plan
 
     def update_values(self, matrix_id: str, M):
         """In-place value refresh of a registered matrix (structure must
         be unchanged): the executor swaps the value streams without any
-        structural rebuild (``BUILD_COUNTS['value_refresh']``)."""
+        structural rebuild (``BUILD_COUNTS['value_refresh']``; on the mesh
+        also ``BUILD_COUNTS['shard_value_refresh']``)."""
         if matrix_id not in self._ops:
             raise KeyError(f"matrix {matrix_id!r} not registered")
         self._matrices[matrix_id] = M
@@ -198,7 +205,7 @@ class SpmvServingEngine:
                     X = torch.from_numpy(
                         np.stack([r.x for r in group], axis=1))
                 # the copy back to the host waits for the product
-                Y = op(X.to(self.device)).cpu().numpy()
+                Y = op(X.to(op.device)).cpu().numpy()
                 dt = time.perf_counter() - t0
                 if obs.STATE.enabled:
                     lbl = dict(matrix_id=mid,

@@ -671,3 +671,163 @@ def test_tune_on_the_card_with_the_default_timer(card):
     want = SpmvOperator(M, path="segment", device=card)
     assert torch.equal(op(X), want(X))
     assert torch.equal(op(X[:, 0].contiguous()), want(X[:, 0].contiguous()))
+
+
+# ---------------------------------------------------------------------------
+# The mesh layer: K5-K12 on flat and nnz-split shard and halo packs
+# ---------------------------------------------------------------------------
+
+MESH_N = 40000
+
+
+def _mesh_matrix(pattern, dyadic):
+    sm = chip_smoke()
+    if pattern == "band":
+        arrays = sm.band_arrays(MESH_N, sm.HALF_BAND, sm.FILL, 21, False,
+                                dyadic=dyadic)
+    else:
+        arrays = sm.powerlaw_arrays(MESH_N, 22, dyadic=dyadic,
+                                    general=not dyadic)
+    return csrc.from_assembly(MESH_N, *arrays)
+
+
+def _mesh_layout(M, kind, p=4, starts=None):
+    from repro_torch.core import partition, schedule
+    path = kind.split("_")[0]
+    plan = ExecutionPlan(path=path)
+    if kind.endswith("_halo"):
+        return schedule.build_path_halo(M, p, plan)
+    if starts is None:
+        starts = partition.partition_rows_by_nnz(M, p).starts
+    sup = {"flat": fl, "nnzsplit": nz}[path]
+    pack = (sup.pack_flat_shards if path == "flat"
+            else sup.pack_nnzsplit_shards)
+    return pack(M, starts)
+
+
+def _shard_runners(pack):
+    """name -> (kernel, plain version) on one shard's pack."""
+    if isinstance(pack, nz.NnzSplitPack):
+        return {"nnzsplit_spmv_stream": (nz.nnzsplit_spmv_stream_cuda,
+                                         nz.nnzsplit_partials_stream_plain),
+                "nnzsplit_spmv_onehot": (nz.nnzsplit_spmv_onehot_cuda,
+                                         nz.nnzsplit_partials_onehot_plain),
+                "nnzsplit_spmm_stream": (nz.nnzsplit_spmm_stream_cuda,
+                                         nz.nnzsplit_partials_stream_plain),
+                "nnzsplit_spmm_onehot": (nz.nnzsplit_spmm_onehot_cuda,
+                                         nz.nnzsplit_partials_onehot_plain)}
+    return {"flat_spmv_stream": (fl.flat_spmv_stream_cuda,
+                                 fl.flat_windows_stream_plain),
+            "flat_spmv_onehot": (fl.flat_spmv_onehot_cuda,
+                                 fl.flat_windows_onehot_plain),
+            "flat_spmm_stream": (fl.flat_spmm_stream_cuda,
+                                 fl.flat_windows_stream_plain),
+            "flat_spmm_onehot": (fl.flat_spmm_onehot_cuda,
+                                 fl.flat_windows_onehot_plain)}
+
+
+def _shard_kernels_equal_plain(lay, card, rng):
+    """Every shard's pack, each of its four kernels at B = 1, 3, 11, equal
+    bit for bit to the plain version on dyadic x, each launch counted."""
+    lay = lay.to(card)
+    for t in range(lay.p):
+        pack = lay.shard_pack(t)
+        for name, (kernel, plain) in _shard_runners(pack).items():
+            for nrhs in ((1,) if "spmv" in name else (3, 11)):
+                x = _dyadic_x(rng, pack.n, nrhs, card)
+                before = _build.launch_counts()[name]
+                got = kernel(pack, x)
+                assert _build.launch_counts()[name] == before + 1
+                assert torch.equal(got, plain(pack, x)), (name, t, nrhs)
+    return lay
+
+
+@pytest.mark.parametrize("kind,pattern", [
+    ("flat_shards", "band"), ("flat_halo", "band"),
+    ("nnzsplit_shards", "powerlaw"), ("nnzsplit_halo", "band")])
+def test_mesh_shard_kernels_equal_plain_on_dyadic_data(card, kind, pattern):
+    """K5-K12 on the stacked shard packs of the mesh strategies (n =
+    40,000, p = 4): each shard's pack is a view of the stacked streams, its
+    step range ends at its real step count, and every kernel equals its
+    plain version bit for bit."""
+    M = _mesh_matrix(pattern, dyadic=True)
+    _shard_kernels_equal_plain(_mesh_layout(M, kind), card,
+                               np.random.default_rng(31))
+
+
+@pytest.mark.parametrize("kind,pattern", [
+    ("flat_shards", "band"), ("flat_halo", "band"),
+    ("nnzsplit_shards", "powerlaw"), ("nnzsplit_halo", "band")])
+def test_mesh_shard_kernels_within_rowsum_tolerance(card, kind, pattern):
+    """The same kernels on standard-normal values and x: within 2e-5 of
+    the row's absolute sum of the plain version's answer."""
+    import dataclasses
+    M = _mesh_matrix(pattern, dyadic=False)
+    lay = _mesh_layout(M, kind).to(card)
+    rng = np.random.default_rng(32)
+    for t in range(lay.p):
+        pack = lay.shard_pack(t)
+        if isinstance(pack, nz.NnzSplitPack):
+            apack = dataclasses.replace(pack, vals=pack.vals.abs())
+        else:
+            apack = dataclasses.replace(
+                pack, vals_l=pack.vals_l.abs(), vals_u=pack.vals_u.abs(),
+                ad=pack.ad.abs())
+        for name, (kernel, plain) in _shard_runners(pack).items():
+            for nrhs in ((1,) if "spmv" in name else (3, 11)):
+                shape = (pack.n,) if nrhs == 1 else (pack.n, nrhs)
+                x = torch.from_numpy(rng.standard_normal(shape).astype(
+                    np.float32)).to(card)
+                got, want = kernel(pack, x), plain(pack, x)
+                bound = 2e-5 * plain(apack, x.abs())
+                assert bool(torch.isfinite(got).all())
+                assert bool(((got - want).abs() <= bound + 1e-30).all()), \
+                    (name, t, nrhs)
+
+
+def test_mesh_unbalanced_partition_long_inert_tail(card):
+    """Three light shards of a few rows each beside one holding the rest:
+    the light shards' packs are nearly all inert trailing steps of the last
+    tile, which their step range ends before; K5-K8 equal the plain
+    versions (which walk every step) bit for bit, and so does the whole
+    product."""
+    M = _mesh_matrix("band", dyadic=True)
+    starts = np.array([0, 3, 6, 9, M.n])
+    lay = _shard_kernels_equal_plain(_mesh_layout(M, "flat_shards",
+                                                  starts=starts),
+                                     card, np.random.default_rng(33))
+    for t in range(3):
+        used = int(lay.shard_pack(t).step_start[-1])
+        assert used == lay.nt and lay.steps - used > lay.nt // 2
+    rng = np.random.default_rng(34)
+    x = _dyadic_x(rng, M.n, 3, card)
+    for variant in ("stream", "onehot"):
+        fn = fl.flat_local_fn(lay, M.n, variant)
+        y = sum(fn(t, x) for t in range(4))
+        assert torch.equal(y, SpmvOperator(M, path="segment")(x)), variant
+
+
+@pytest.mark.parametrize("path,acc", [
+    ("flat", "allreduce"), ("flat", "reduce_scatter"), ("flat", "halo"),
+    ("nnzsplit", "halo"), ("segment", "halo")])
+def test_mesh_executor_on_the_card_matches_segment(card, path, acc):
+    """The MeshExecutor on four shards emulated on the card, both variants,
+    equal to the local segment path on dyadic data; the shard-local kernel
+    launched once per shard and product."""
+    from repro_torch.core.distributed import ShardMesh
+    from repro_torch.serve import MeshExecutor
+    M = _mesh_matrix("band", dyadic=True)
+    rng = np.random.default_rng(35)
+    X = _dyadic_x(rng, M.n, 3, card)
+    want = SpmvOperator(M, path="segment")(X)
+    for variant in ("stream", "onehot"):
+        ex = MeshExecutor(M, ExecutionPlan(path=path, variant=variant,
+                                           strategy="mesh", mesh_p=4,
+                                           accumulation=acc),
+                          mesh=ShardMesh(4, card))
+        assert ex.device.type == "cuda"
+        name = f"{path}_spmm_{variant}"
+        before = _build.launch_counts().get(name, 0)
+        assert torch.equal(ex(X), want), variant
+        if path != "segment":
+            assert _build.launch_counts()[name] == before + 4

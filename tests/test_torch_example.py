@@ -39,3 +39,43 @@ def test_example_defaults_to_the_card():
         pytest.skip("a card is present: the default device is usable")
     with pytest.raises(RuntimeError, match="cuda"):
         _example().main(["--n", "4", "--steps", "0"])
+
+
+MESH_EXAMPLE = os.path.join(os.path.dirname(__file__), "..", "examples",
+                            "torch_serve_mesh.py")
+
+
+def _mesh_example():
+    spec = importlib.util.spec_from_file_location("torch_mesh_example",
+                                                  MESH_EXAMPLE)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_mesh_example_tunes_and_serves_on_an_emulated_mesh(capsys):
+    out = _mesh_example().main(["--device", "cpu", "--n", "512",
+                                "--mesh-p", "4", "--requests", "7"])
+    printed = capsys.readouterr().out
+    assert "tuned fem_band @p4:" in printed and "value refresh" in printed
+    assert all(p.strategy == "mesh" and p.mesh_p == 4
+               for p in out["plans"].values())
+    assert all(r.executor == "mesh" for r in out["results"].values())
+    assert len(out["results"]) == 7
+    assert out["max_err"] < 1e-3 and out["refresh_err"] < 1e-3
+    assert out["refresh_executor"] == "mesh"
+
+
+def test_mesh_example_degrades_to_local_without_a_mesh(capsys):
+    out = _mesh_example().main(["--device", "cpu", "--n", "256",
+                                "--no-mesh", "--requests", "3"])
+    assert all(p.strategy == "local" for p in out["plans"].values())
+    assert out["max_err"] < 1e-3
+
+
+def test_mesh_example_defaults_to_the_card():
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="cuda"):
+        _mesh_example().main(["--n", "64", "--requests", "1"])

@@ -11,6 +11,7 @@ from repro.core import plan as jplan
 from repro.serve import SpmvServingEngine as JEngine
 from repro_torch.core import plan as tplan
 from repro_torch.core import schedule as tsched
+from repro_torch.core.distributed import ShardMesh
 from repro_torch.core import tuner as ttuner
 from repro_torch.serve import (LocalExecutor, SpmvResult, SpmvServingEngine,
                                placement)
@@ -122,9 +123,13 @@ def test_submit_validation_and_unported_modes():
     # autotuning is ported: it measures at the engine's batched width
     tuned = SpmvServingEngine(device="cpu", autotune=True).register("a", M)
     assert tuned.nrhs in (1, 8)
+    # a mesh plan needs a mesh of its width: the CPU counts one device, so
+    # two shards are refused unless an emulated mesh is supplied
     mesh = tplan.ExecutionPlan(path="segment", strategy="mesh", mesh_p=2)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(ValueError, match="devices"):
         placement.build_executor(M, mesh, device="cpu")
+    ex = placement.build_executor(M, mesh, mesh=ShardMesh(2, "cpu"))
+    assert ex.kind == "mesh" and ex.device == torch.device("cpu")
     # a mesh request degrades to the local entries, as in the reference
     # when the process cannot see enough devices
     assert placement.resolve_plan(M, mesh_p=4).strategy == "local"

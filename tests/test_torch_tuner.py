@@ -26,6 +26,7 @@ from repro_torch.core import plan as tplan
 from repro_torch.core import schedule as tsched
 from repro_torch.core import solvers as tsolvers
 from repro_torch.core import tuner as ttuner
+from repro_torch.core.distributed import ShardMesh
 from repro_torch.kernels import ops as tops
 from repro_torch.roofline import cost_model as tcost
 from repro_torch.serve import SpmvServingEngine, placement
@@ -295,10 +296,15 @@ def test_plan_for_autotune_counts_one_miss():
 
 
 def test_tune_refuses_the_mesh_mode():
+    """The mesh mode without a mesh of the width asked for is refused (the
+    CPU counts one device); given one, it records the per-p winner."""
     Mt = to_torch_csrc(jcsrc.poisson2d(6))
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(ValueError, match="devices"):
         ttuner.tune(Mt, mesh_ps=(2,), device=CPU,
                     measure=lambda op, x: 1.0)
+    res = ttuner.tune(Mt, mesh_ps=(2,), device=CPU,
+                      mesh=ShardMesh(2, CPU), measure=lambda op, x: 1.0)
+    assert res.mesh_plans[2].strategy == "mesh"
 
 
 def test_bf16_candidates_pass_the_accuracy_gate_against_segment():
