@@ -46,6 +46,20 @@ deployment would call real, one after the other:
             n = 40,000 first, every mesh product of K5-K12 on the card
             equal bit for bit to the plain versions' on the CPU (dyadic).
 
+  lm        last, the LM serving path of the dense family at full width:
+            qwen3-8b (36 layers, GQA) and then deepseek-v2-lite-16b (27
+            layers, MLA, 64 experts top-6), random bf16 weights drawn on the
+            card from ``--seed``, each serving ``launch/serve.py``'s traffic
+            (8 prompts of 4-11 tokens, 4 slots, 16 new tokens, greedy)
+            through two ``ServingEngine``s that must agree token for token;
+            prefill + one decode against ``forward`` on the extended
+            sequence (bf16 cache, int8 cache; deepseek at capacity factor
+            E/k), a 4,096-token prefill (the chunked online softmax)
+            against one pass, tokens/s, prefill and decode ms (CUDA events)
+            beside the decode's byte floor, one decode under
+            ``torch.profiler`` (launches, the device's busy time) and
+            memory.  It adds no kernel.
+
 Each path's two matrices are served by one ``SpmvServingEngine`` and solved
 by ``cg_solve`` / ``bicgstab``.  After the ``kernel`` and ``flat`` paths'
 main runs, a tune phase registers their non-symmetric matrix (``fem_ns``,
@@ -78,6 +92,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import dataclasses
 import gc
 import json
@@ -2694,6 +2709,304 @@ def phase_assembly_kernels(sched, ke, launches, cubes, seed):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# The LM serving path (the dense family): two published models at full
+# width, random weights from the seed, served by the token ServingEngine
+# ---------------------------------------------------------------------------
+
+LM_DEVICE = "cuda"
+LM_DENSE = "qwen3-8b"
+LM_MOE = "deepseek-v2-lite-16b"
+# launch/serve.py's traffic: 8 prompts of 4-11 tokens, 4 slots, greedy
+LM_TRAFFIC = {"requests": 8, "slots": 4, "max_len": 256, "max_new": 16}
+LM_DECODE_TOL = 0.05   # tests/test_models.py::test_smoke_decode_consistency
+LM_INT8_TOL = 0.1      # tests/test_serve.py::test_int8_kv_decode_consistency
+LM_CHUNK_TOL = 2e-2    # of the largest logit: chunked against one pass
+LM_LONG = 4096         # a prefill that takes the chunked online softmax
+
+
+class TimedModel:
+    """The model as the engine sees it, with each prefill and decode call
+    bracketed by CUDA events (ms per call: the device's time between the
+    events, launch gaps included) and the host clock."""
+
+    def __init__(self, model):
+        self.model = model
+        self.device = model.device
+        self.ms = {"prefill": [], "decode": []}
+        self.host_ms = {"prefill": [], "decode": []}
+
+    def _timed(self, kind, fn, *args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = fn(*args, **kw)
+        end.record()
+        end.synchronize()
+        self.host_ms[kind].append((time.perf_counter() - t0) * 1e3)
+        self.ms[kind].append(start.elapsed_time(end))
+        return out
+
+    def prefill(self, prompt, max_len):
+        return self._timed("prefill", self.model.prefill, prompt,
+                           max_len=max_len)
+
+    def decode_step(self, state, tokens):
+        return self._timed("decode", self.model.decode_step, state, tokens)
+
+
+def _lm_serve(model, cfg, seed):
+    """launch/serve.py's traffic through one ServingEngine; returns the
+    engine's outputs by uid, the wall seconds and the timed model."""
+    from repro_torch.launch.serve import submit_traffic
+    from repro_torch.serve.engine import ServingEngine
+    timed = TimedModel(model)
+    eng = ServingEngine(timed, max_slots=LM_TRAFFIC["slots"],
+                        max_len=LM_TRAFFIC["max_len"], eos_id=1, seed=seed)
+    submit_traffic(eng, cfg, LM_TRAFFIC["requests"], LM_TRAFFIC["max_new"],
+                   0.0, seed)
+    t0 = time.perf_counter()
+    done = eng.run_until_drained()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check(len(done) == LM_TRAFFIC["requests"],
+          f"{cfg.name}: {len(done)} of {LM_TRAFFIC['requests']} requests "
+          "retired")
+    return {r.uid: r.out_tokens for r in done}, seconds, timed
+
+
+def _rel(got, want) -> float:
+    got, want = got.float(), want.float()
+    check(bool(torch.isfinite(got).all()), "non-finite logits")
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _decode_consistency(model, seed, tol):
+    """prefill + one decode_step against forward on the extended sequence
+    (b 2, s 12: the reference's test); returns the relative error."""
+    cfg = model.cfg
+    g = torch.Generator(device=LM_DEVICE).manual_seed(seed + 1)
+    seq = torch.randint(0, cfg.vocab, (2, 13), generator=g,
+                        device=LM_DEVICE, dtype=torch.int32)
+    with torch.inference_mode():
+        want = model.forward(seq)[:, 12]
+        state, _ = model.prefill(seq[:, :12], max_len=20)
+        _, logits = model.decode_step(state, seq[:, 12:13])
+    err = _rel(logits[:, 0], want)
+    check(err < tol, f"{cfg.name} ({cfg.kv_cache_dtype} cache): prefill + "
+          f"decode against forward rel err {err} >= {tol}")
+    return err
+
+
+def _profile_decode(model, seed):
+    """One decode step of a batch-1 slot under torch.profiler: kernel and
+    copy launches, and the device's busy ms (the sum of their times).
+    Returns None when the profiler sees no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = model.cfg
+    g = torch.Generator(device=LM_DEVICE).manual_seed(seed + 2)
+    prompt = torch.randint(2, cfg.vocab, (1, 8), generator=g,
+                           device=LM_DEVICE, dtype=torch.int32)
+    with torch.inference_mode():
+        state, logits = model.prefill(prompt, max_len=64)
+        tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+        state, _ = model.decode_step(state, tok)          # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            model.decode_step(state, tok)
+            torch.cuda.synchronize()
+    device = [ev for ev in prof.events()
+              if ev.device_type == torch.autograd.DeviceType.CUDA]
+    launches = len(device)
+    busy_us = sum(ev.time_range.elapsed_us() for ev in device)
+    if busy_us <= 0:
+        return None
+    return {"device_launches": launches, "device_busy_ms": busy_us / 1e3}
+
+
+def _lm_model(name, seed, card):
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.transformer import build_model
+    cfg = get_config(name)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=LM_DEVICE).manual_seed(seed)
+    model = build_model(cfg, device=LM_DEVICE, generator=gen)
+    torch.cuda.synchronize()
+    params = sum(p.numel() for p in model.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    emit("lm_model", model=name, card=card, layers=cfg.n_layers,
+         d_model=cfg.d_model, vocab=cfg.vocab, dtype=cfg.dtype,
+         params=params, param_count_formula=cfg.param_count(),
+         active_param_count_formula=cfg.active_param_count(),
+         param_bytes=nbytes, init_s=round(time.perf_counter() - t0, 3),
+         max_memory_allocated=torch.cuda.max_memory_allocated())
+    return cfg, model
+
+
+def _lm_traffic(model, cfg, seed, card, **extra):
+    """Two engines on the same traffic: the first timed, the second held
+    to the first token for token (greedy)."""
+    out, seconds, timed = _lm_serve(model, cfg, seed)
+    again, _, _ = _lm_serve(model, cfg, seed)
+    check(again == out, f"{cfg.name}: greedy decoding differs between two "
+          "engines on the same traffic")
+    tokens = sum(len(t) for t in out.values())
+    # the bytes one batch-1 decode must read: every weight it uses (the
+    # top-k routed experts only, by active_param_count), all but the
+    # embedding table, of which it gathers one row; beside it every
+    # weight but that table (the capacity dispatch runs all experts)
+    elsize = torch.finfo(cfg.compute_dtype).bits // 8
+    table = 0 if cfg.tie_embeddings else cfg.vocab * cfg.d_model
+    used = cfg.active_param_count() - table
+    every = sum(p.numel() for p in model.parameters()) - table
+    dec, pre = timed.ms["decode"], timed.ms["prefill"]
+    prof = _profile_decode(model, seed)
+    decode_ms = float(np.mean(dec))
+    emit("lm_serve", model=cfg.name, card=card, **LM_TRAFFIC,
+         tokens=tokens, seconds=round(seconds, 4),
+         tokens_per_s=round(tokens / seconds, 2),
+         prefill_ms=round(float(np.mean(pre)), 4),
+         prefill_calls=len(pre),
+         decode_ms_per_token_slot=round(decode_ms, 4),
+         decode_ms_median=round(float(np.median(dec)), 4),
+         decode_host_ms=round(float(np.mean(timed.host_ms["decode"])), 4),
+         decode_calls=len(dec),
+         decode_floor_ms=round(used * elsize / HBM_BYTES_PER_S * 1e3, 4),
+         all_weights_ms=round(every * elsize / HBM_BYTES_PER_S * 1e3, 4),
+         decode_profile=prof,
+         device_idle_share=(round(1 - prof["device_busy_ms"] / decode_ms, 4)
+                            if prof else None),
+         greedy_repeats=True, **extra)
+    return out
+
+
+def _last_logits(model, inp, kv_chunk, dtype):
+    """A prefill's last-token logits walked block by block with an explicit
+    ``kv_chunk`` (None: one pass), each block's weights cast to ``dtype``
+    while it runs."""
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.models.transformer import (block_attn_forward,
+                                                block_ffn_forward)
+    cfg = model.cfg
+
+    def cast(block):
+        return block if dtype == cfg.compute_dtype else \
+            copy.deepcopy(block).to(dtype)
+
+    x = model.embed_in(inp).to(dtype)
+    pos = torch.arange(inp.shape[1], device=LM_DEVICE)
+    blocks = [(b, False) for b in model.first_layers]
+    blocks += [(b, model.use_moe) for b in model.layers]
+    for block, use_moe in blocks:
+        lp = cast(block)
+        x, _ = block_attn_forward(cfg, lp, x, pos, kv_chunk,
+                                  cfg.sliding_window)
+        x, _ = block_ffn_forward(cfg, lp, x, use_moe=use_moe)
+        del lp
+    x = rms_norm(x[:, -1:], model.final_norm, offset=cfg.norm_offset)
+    tied = cfg.input_mode == "tokens" and cfg.tie_embeddings
+    return x @ (model.embed.T if tied else model.head).to(dtype)
+
+
+def _lm_long_prefill(model, seed):
+    """A 4,096-token prefill, which takes the chunked online-softmax branch
+    (kv_chunk 2048), against the same prefill in one pass (kv_chunk None):
+    in float32 (the same weights, widened a block at a time) within
+    LM_CHUNK_TOL of the largest logit; in bf16, the chunked prefill no
+    farther from the float32 one pass than the bf16 one pass is (1.25x)."""
+    cfg = model.cfg
+    g = torch.Generator(device=LM_DEVICE).manual_seed(seed + 3)
+    inp = torch.randint(0, cfg.vocab, (1, LM_LONG), generator=g,
+                        device=LM_DEVICE, dtype=torch.int32)
+    with torch.inference_mode():
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, chunked = model.prefill(inp, max_len=LM_LONG)
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end)
+        del state
+        one_pass = _last_logits(model, inp, None, cfg.compute_dtype)
+    with torch.no_grad():
+        chunked32 = _last_logits(model, inp, 2048, torch.float32)
+        one_pass32 = _last_logits(model, inp, None, torch.float32)
+    err32 = _rel(chunked32, one_pass32)
+    check(err32 < LM_CHUNK_TOL, f"{cfg.name}: chunked {LM_LONG}-token "
+          f"prefill against one pass in float32: {err32} >= {LM_CHUNK_TOL}")
+    err_chunked, err_one = _rel(chunked, one_pass32), _rel(one_pass,
+                                                           one_pass32)
+    check(err_chunked <= 1.25 * err_one,
+          f"{cfg.name}: bf16 chunked prefill {err_chunked} from float32, "
+          f"bf16 one pass {err_one}")
+    return {"tokens": LM_LONG, "ms": round(ms, 4),
+            "float32_rel_err": err32,
+            "bf16_chunked_vs_one_pass": _rel(chunked, one_pass),
+            "bf16_chunked_vs_float32": err_chunked,
+            "bf16_one_pass_vs_float32": err_one}
+
+
+def phase_lm(seed: int, card):
+    """The LM serving path at full width: qwen3-8b (GQA, dense), then
+    deepseek-v2-lite-16b (MLA, 64 experts top-6, first layer dense), each
+    initialized in bf16 on the card from a seeded generator and freed before
+    the next."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg, model = _lm_model(LM_DENSE, seed, card)
+    _lm_traffic(model, cfg, seed, card)
+    err = _decode_consistency(model, seed, LM_DECODE_TOL)
+    long = _lm_long_prefill(model, seed)
+    model.cfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    try:
+        err8 = _decode_consistency(model, seed, LM_INT8_TOL)
+    finally:
+        model.cfg = cfg
+    emit("lm_checks", model=cfg.name, card=card, decode_rel_err=err,
+         decode_tol=LM_DECODE_TOL, long_prefill=long,
+         int8_decode_rel_err=err8, int8_tol=LM_INT8_TOL,
+         max_memory_allocated=torch.cuda.max_memory_allocated())
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg, model = _lm_model(LM_MOE, seed, card)
+    prompts = np.random.default_rng(seed)
+    dropped = []
+    with torch.inference_mode():
+        for _ in range(LM_TRAFFIC["requests"]):   # the traffic's prompts
+            plen = int(prompts.integers(4, 12))
+            p = torch.as_tensor(prompts.integers(2, cfg.vocab, plen),
+                                dtype=torch.int32, device=LM_DEVICE)[None]
+            _, aux = model.forward(p, return_aux=True, logits_mode="last")
+            dropped.append(round(float(aux["dropped_fraction"]), 4))
+    _lm_traffic(model, cfg, seed, card,
+                capacity_factor=cfg.moe.capacity_factor,
+                prefill_dropped_fraction=dropped)
+    m = cfg.moe
+    no_drop = m.num_experts / m.top_k
+    model.cfg = dataclasses.replace(
+        cfg, moe=dataclasses.replace(m, capacity_factor=no_drop))
+    try:
+        err = _decode_consistency(model, seed, LM_DECODE_TOL)
+    finally:
+        model.cfg = cfg
+    emit("lm_checks", model=cfg.name, card=card, decode_rel_err=err,
+         decode_tol=LM_DECODE_TOL,
+         decode_capacity_factor=f"E/k = {no_drop} (no drops, as the reduced "
+         "configs set it)",
+         max_memory_allocated=torch.cuda.max_memory_allocated())
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("lm_phase", seconds=round(time.perf_counter() - t_phase, 3))
+
+
 def csrc_abs(n, ia, ja, ad, al, au):
     from repro_torch.core import csrc
     return csrc.from_assembly(n, ia, ja, np.abs(ad), np.abs(al), np.abs(au))
@@ -2781,6 +3094,7 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_colorful(int(round(math.sqrt(args.n / 8))), args.seed)
     emit("colorful_phase", seconds=round(time.perf_counter() - t0, 3))
+    phase_lm(args.seed, card)
     emit("total", seconds=round(time.perf_counter() - t_start, 3))
 
     print(json.dumps({"kernels": rows}), flush=True)

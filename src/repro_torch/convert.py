@@ -4,7 +4,8 @@ arrays and plain Python values.
 The caller does the ``np.asarray`` on the other package's arrays: nothing
 here ever sees (or imports) a foreign array type.  bfloat16 streams cross
 as widened float32 plus the dtype's name, the way the schedule npz layer
-stores them.
+stores them; an LM's bfloat16 weights cross as numpy's bfloat16 arrays,
+bit for bit (``lm_state_dict_from_jax``).
 """
 from __future__ import annotations
 
@@ -266,3 +267,58 @@ def assembly_schedule_from_arrays(*, structure_digest: str, n: int, k: int,
 def plan_from_dict(d: Dict) -> ExecutionPlan:
     """An :class:`ExecutionPlan` from another plan's ``to_dict()``."""
     return ExecutionPlan.from_dict(dict(d))
+
+
+def _leaf_tensor(a) -> torch.Tensor:
+    """A tensor of ``a``'s dtype.  A bfloat16 array (numpy's
+    ``ml_dtypes.bfloat16``, which ``torch.from_numpy`` cannot take)
+    crosses as its ``uint16`` bits.  The array is copied: the tensor owns
+    its memory."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _flat_leaves(tree, prefix=""):
+    for name, value in tree.items():
+        path = f"{prefix}{name}"
+        if isinstance(value, dict):
+            yield from _flat_leaves(value, path + ".")
+        else:
+            yield path, value
+
+
+def lm_state_dict_from_jax(cfg, params) -> Dict[str, torch.Tensor]:
+    """A state dict for ``DenseLM(cfg)`` from the JAX package's params tree
+    of the same config, handed over as nested dicts of numpy arrays.
+
+    The layer stacks ``layers`` / ``first_layers`` are unstacked along axis
+    0 into ``layers.<i>.<name>``; every leaf keeps its dtype.  Raises
+    ``ValueError`` on a leaf the model has no weight for, on a shape that
+    differs from the model's, and on a weight the tree does not give."""
+    from repro_torch.models.transformer import DenseLM
+    expected = {k: v.shape for k, v in
+                DenseLM(cfg, device="meta").state_dict().items()}
+    out: Dict[str, torch.Tensor] = {}
+    for path, leaf in _flat_leaves(params):
+        group, _, rest = path.partition(".")
+        if group in ("layers", "first_layers") and rest:
+            pieces = [(f"{group}.{i}.{rest}", leaf[i])
+                      for i in range(np.shape(leaf)[0])]
+        else:
+            pieces = [(path, leaf)]
+        for key, a in pieces:
+            if key not in expected:
+                raise ValueError(f"{cfg.name}: leaf {key!r} not consumed: "
+                                 "the model has no such weight")
+            t = _leaf_tensor(a)
+            if t.shape != expected[key]:
+                raise ValueError(f"{cfg.name}: leaf {key!r} has shape "
+                                 f"{tuple(t.shape)}, the model "
+                                 f"{tuple(expected[key])}")
+            out[key] = t
+    missing = sorted(set(expected) - set(out))
+    if missing:
+        raise ValueError(f"{cfg.name}: the tree lacks {missing[:5]}")
+    return out

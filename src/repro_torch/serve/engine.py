@@ -1,4 +1,11 @@
-"""The SpMV serving engine.
+"""Continuous-batching serving engines.
+
+``ServingEngine`` — token generation.  Requests are admitted into free
+slots between ticks; each slot holds its own batch-1 decode state, filled
+by a prefill of the prompt; greedy or temperature sampling produces tokens
+until EOS or ``max_new_tokens``.  The engine takes the model module (a
+``DenseLM``); tokens come back to the host once per slot and tick, which is
+the synchronization that ends each step.
 
 ``SpmvServingEngine`` — the paper's workload as a service: clients submit
 (matrix_id, x) products; matrices are registered once and get an
@@ -23,6 +30,108 @@ import numpy as np
 import torch
 
 from repro_torch import obs
+
+
+@dataclasses.dataclass
+class Request:
+    uid: int
+    prompt: np.ndarray            # (S,) int32
+    max_new_tokens: int = 16
+    temperature: float = 0.0      # 0 => greedy
+    out_tokens: Optional[List[int]] = None
+
+
+class ServingEngine:
+    """Token generation over ``max_slots`` independent slots.
+
+    ``model`` provides ``prefill(prompt, max_len=)`` and
+    ``decode_step(state, tokens)`` (``DenseLM`` does) and a ``device``;
+    temperature sampling draws from a ``torch.Generator`` on that device
+    seeded with ``seed``."""
+
+    def __init__(self, model, max_slots: int, max_len: int,
+                 eos_id: int = 1, seed: int = 0):
+        self.model = model
+        self.device = torch.device(model.device)
+        self.max_slots = max_slots
+        self.max_len = max_len
+        self.eos_id = eos_id
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            seed)
+        self.queue: List[Request] = []
+        self.active: Dict[int, Request] = {}       # slot -> request
+        self.remaining: Dict[int, int] = {}
+        # one batch-1 decode state per slot: slots are independent
+        self._states: Dict[int, object] = {}
+
+    def submit(self, req: Request):
+        req.out_tokens = []
+        self.queue.append(req)
+
+    def _admit(self):
+        """Admit queued requests into free slots; returns the requests
+        that finished at prefill (EOS straight from the prompt, or a
+        one-token budget) — those never occupy a decode slot."""
+        finished = []
+        for slot in range(self.max_slots):
+            if slot in self.active or not self.queue:
+                continue
+            req = self.queue.pop(0)
+            prompt = torch.as_tensor(np.asarray(req.prompt),
+                                     dtype=torch.int32,
+                                     device=self.device)[None]
+            state, logits = self.model.prefill(prompt, max_len=self.max_len)
+            tok = self._sample(logits[:, -1], req.temperature)
+            first = int(tok[0])
+            req.out_tokens.append(first)
+            # the prefill token counts toward max_new_tokens; retire here
+            # when it is EOS or exhausts the budget, instead of burning a
+            # decode tick on an already-finished request
+            if first == self.eos_id or req.max_new_tokens <= 1:
+                finished.append(req)
+                continue
+            self.active[slot] = req
+            self.remaining[slot] = req.max_new_tokens - 1
+            self._states[slot] = (state, tok)
+        return finished
+
+    def _sample(self, logits, temperature: float):
+        """(B, V) logits -> (B,) int32 tokens: the first maximum when
+        greedy, else a draw from softmax(logits / temperature)."""
+        if temperature <= 0.0:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        probs = torch.softmax(logits.float() / temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=self.generator
+                                 )[:, 0].to(torch.int32)
+
+    @torch.inference_mode()
+    def step(self):
+        """One engine tick: admit, decode every active slot, retire."""
+        finished = self._admit()
+        done = []
+        for slot, req in self.active.items():
+            state, last_tok = self._states[slot]
+            state, logits = self.model.decode_step(state, last_tok[:, None])
+            tok = self._sample(logits[:, 0], req.temperature)
+            nxt = int(tok[0])
+            req.out_tokens.append(nxt)
+            self._states[slot] = (state, tok)
+            self.remaining[slot] -= 1
+            if nxt == self.eos_id or self.remaining[slot] <= 0:
+                done.append(slot)
+        for slot in done:
+            finished.append(self.active.pop(slot))
+            self._states.pop(slot)
+            self.remaining.pop(slot)
+        return finished
+
+    def run_until_drained(self, max_ticks: int = 1000):
+        out = []
+        for _ in range(max_ticks):
+            out.extend(self.step())
+            if not self.queue and not self.active:
+                break
+        return out
 
 
 @dataclasses.dataclass

@@ -51,7 +51,17 @@ def test_sources_found():
                  "src/repro_torch/core/coloring.py",
                  "src/repro_torch/core/solvers.py",
                  "src/repro_torch/serve/engine.py",
-                 "src/repro_torch/obs/provenance.py"):
+                 "src/repro_torch/obs/provenance.py",
+                 "src/repro_torch/configs/base.py",
+                 "src/repro_torch/configs/qwen3_8b.py",
+                 "src/repro_torch/configs/deepseek_v2_lite_16b.py",
+                 "src/repro_torch/configs/zamba2_7b.py",
+                 "src/repro_torch/models/layers.py",
+                 "src/repro_torch/models/attention.py",
+                 "src/repro_torch/models/mla.py",
+                 "src/repro_torch/models/moe.py",
+                 "src/repro_torch/models/transformer.py",
+                 "src/repro_torch/launch/serve.py"):
         assert must in names, must
 
 

@@ -94,3 +94,45 @@ MATRICES = {
     "empty_rows": lambda: empty_rows(64),
     "poisson2d": lambda: jcsrc.poisson2d(12),
 }
+
+
+# ---------------------------------------------------------------------------
+# LM models: one reduced config through both packages
+# ---------------------------------------------------------------------------
+
+def lm_pair(arch, dtype="float32", seed=0, **overrides):
+    """The JAX package's model and params for ``arch``'s reduced config (in
+    ``dtype``, with ``overrides``), and the port's ``DenseLM`` of the same
+    config on the CPU holding the same weights
+    (``convert.lm_state_dict_from_jax``).  Returns (jax model, params,
+    port model)."""
+    import jax
+    from repro.configs.base import get_config as jget
+    from repro.models.transformer import build_model as jbuild
+    from repro_torch.configs.base import get_config as tget
+    from repro_torch.models.transformer import build_model as tbuild
+    jc = dataclasses.replace(jget(arch, reduced=True), dtype=dtype,
+                             **overrides)
+    tc = dataclasses.replace(tget(arch, reduced=True), dtype=dtype,
+                             **overrides)
+    jm = jbuild(jc)
+    params = jm.init(jax.random.PRNGKey(seed))
+    tm = tbuild(tc, device="cpu")
+    tm.load_state_dict(convert.lm_state_dict_from_jax(
+        tc, jax.tree.map(np.asarray, params)), strict=True)
+    return jm, params, tm
+
+
+def lm_inputs(cfg, b, s, seed=1):
+    """Token ids in [0, vocab) or standard-normal frontend embeddings."""
+    rng = np.random.default_rng(seed)
+    if cfg.input_mode == "tokens":
+        return rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)
+    return rng.standard_normal((b, s, cfg.d_model)).astype(np.float32)
+
+
+def rel_err(got, want):
+    """max |got - want| / max |want|, both widened to float32."""
+    got, want = np32(got).astype(np.float32), np32(want).astype(np.float32)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    return float(np.abs(got - want).max()) / float(np.abs(want).max())
