@@ -46,7 +46,7 @@ deployment would call real, one after the other:
             n = 40,000 first, every mesh product of K5-K12 on the card
             equal bit for bit to the plain versions' on the CPU (dyadic).
 
-  lm        last, the LM serving path of the dense family at full width:
+  lm        last, the LM serving path at full width, the dense family:
             qwen3-8b (36 layers, GQA) and then deepseek-v2-lite-16b (27
             layers, MLA, 64 experts top-6), random bf16 weights drawn on the
             card from ``--seed``, each serving ``launch/serve.py``'s traffic
@@ -58,7 +58,14 @@ deployment would call real, one after the other:
             against one pass, tokens/s, prefill and decode ms (CUDA events)
             beside the decode's byte floor, one decode under
             ``torch.profiler`` (launches, the device's busy time) and
-            memory.  It adds no kernel.
+            memory.  Then the recurrent families: rwkv6-1.6b (24 layers of
+            RWKV6) and zamba2-7b (81 Mamba2 layers, a weight-shared
+            attention block every 6 with its LoRA, a 4,096-position ring)
+            through the same traffic, prefill + decode against
+            ``forward`` (bf16, and the weights widened to float32), and
+            the chunked scans against the recurrent ones
+            (one layer in float32 on 512 tokens, gated; the whole model
+            in bf16, reported).  It adds no kernel.
 
 Each path's two matrices are served by one ``SpmvServingEngine`` and solved
 by ``cg_solve`` / ``bicgstab``.  After the ``kernel`` and ``flat`` paths'
@@ -2710,8 +2717,9 @@ def phase_assembly_kernels(sched, ke, launches, cubes, seed):
 
 
 # ---------------------------------------------------------------------------
-# The LM serving path (the dense family): two published models at full
-# width, random weights from the seed, served by the token ServingEngine
+# The LM serving path: the dense family's two published models, then the
+# recurrent families' two, at full width, random weights from the seed,
+# served by the token ServingEngine
 # ---------------------------------------------------------------------------
 
 LM_DEVICE = "cuda"
@@ -2723,6 +2731,12 @@ LM_DECODE_TOL = 0.05   # tests/test_models.py::test_smoke_decode_consistency
 LM_INT8_TOL = 0.1      # tests/test_serve.py::test_int8_kv_decode_consistency
 LM_CHUNK_TOL = 2e-2    # of the largest logit: chunked against one pass
 LM_LONG = 4096         # a prefill that takes the chunked online softmax
+# the recurrent families: RWKV6 (ssm) and the Mamba2 hybrid
+LM_RECURRENT = ("rwkv6-1.6b", "zamba2-7b")
+LM_SCAN_T = 512        # tokens of the chunked-against-recurrent checks
+# (rtol, atol): tests/test_mamba2.py's bars for the chunked forms
+LM_SCAN_TOL = {"CHUNKED_WKV": (1e-3, 1e-4), "CHUNKED_SSD": (1e-4, 1e-4)}
+LM_F32_TOL = 1e-4      # float32 decode against forward (the CPU parity bar)
 
 
 class TimedModel:
@@ -2846,6 +2860,35 @@ def _lm_model(name, seed, card):
     return cfg, model
 
 
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _decode_bytes(model, cfg):
+    """The bytes one batch-1 decode must move, and beside them every
+    weight's bytes.  Neither counts the embedding table, of which a decode
+    gathers one row.  The dense family reads the weights it uses (the top-k
+    routed experts only, by active_param_count; every weight is the other
+    number, since the capacity dispatch runs all experts).  The recurrent
+    families read every weight, the hybrid's shared block once per
+    application (n_groups times), and read and write their recurrent state
+    once (RWKV's WKV matrices and shifted tokens, Mamba2's SSM states and
+    conv tails); the attention ring's filled keys are left out."""
+    from repro_torch.models.transformer import DenseLM, HybridLM
+    table = 0 if cfg.tie_embeddings else cfg.vocab * cfg.d_model
+    elsize = torch.finfo(cfg.compute_dtype).bits // 8
+    weights = _nbytes(model.parameters()) - table * elsize
+    if isinstance(model, DenseLM):
+        return (cfg.active_param_count() - table) * elsize, weights
+    floor = weights
+    if isinstance(model, HybridLM):
+        floor += (model.n_groups - 1) * _nbytes(model.shared.parameters())
+    state = model.init_decode_state(1, 1)
+    recurrent = [t for key in ("states", "groups", "tail")
+                 for t in (state.get(key) or ())]
+    return floor + 2 * _nbytes(recurrent), weights
+
+
 def _lm_traffic(model, cfg, seed, card, **extra):
     """Two engines on the same traffic: the first timed, the second held
     to the first token for token (greedy)."""
@@ -2854,14 +2897,7 @@ def _lm_traffic(model, cfg, seed, card, **extra):
     check(again == out, f"{cfg.name}: greedy decoding differs between two "
           "engines on the same traffic")
     tokens = sum(len(t) for t in out.values())
-    # the bytes one batch-1 decode must read: every weight it uses (the
-    # top-k routed experts only, by active_param_count), all but the
-    # embedding table, of which it gathers one row; beside it every
-    # weight but that table (the capacity dispatch runs all experts)
-    elsize = torch.finfo(cfg.compute_dtype).bits // 8
-    table = 0 if cfg.tie_embeddings else cfg.vocab * cfg.d_model
-    used = cfg.active_param_count() - table
-    every = sum(p.numel() for p in model.parameters()) - table
+    floor_bytes, every_bytes = _decode_bytes(model, cfg)
     dec, pre = timed.ms["decode"], timed.ms["prefill"]
     prof = _profile_decode(model, seed)
     decode_ms = float(np.mean(dec))
@@ -2874,13 +2910,25 @@ def _lm_traffic(model, cfg, seed, card, **extra):
          decode_ms_median=round(float(np.median(dec)), 4),
          decode_host_ms=round(float(np.mean(timed.host_ms["decode"])), 4),
          decode_calls=len(dec),
-         decode_floor_ms=round(used * elsize / HBM_BYTES_PER_S * 1e3, 4),
-         all_weights_ms=round(every * elsize / HBM_BYTES_PER_S * 1e3, 4),
+         decode_floor_bytes=floor_bytes,
+         decode_floor_ms=round(floor_bytes / HBM_BYTES_PER_S * 1e3, 4),
+         all_weights_ms=round(every_bytes / HBM_BYTES_PER_S * 1e3, 4),
          decode_profile=prof,
          device_idle_share=(round(1 - prof["device_busy_ms"] / decode_ms, 4)
                             if prof else None),
          greedy_repeats=True, **extra)
     return out
+
+
+def _timed_call(fn):
+    """fn() bracketed by CUDA events: (its result, ms)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def _last_logits(model, inp, kv_chunk, dtype):
@@ -2922,13 +2970,8 @@ def _lm_long_prefill(model, seed):
     inp = torch.randint(0, cfg.vocab, (1, LM_LONG), generator=g,
                         device=LM_DEVICE, dtype=torch.int32)
     with torch.inference_mode():
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        state, chunked = model.prefill(inp, max_len=LM_LONG)
-        end.record()
-        end.synchronize()
-        ms = start.elapsed_time(end)
+        (state, chunked), ms = _timed_call(
+            lambda: model.prefill(inp, max_len=LM_LONG))
         del state
         one_pass = _last_logits(model, inp, None, cfg.compute_dtype)
     with torch.no_grad():
@@ -2949,11 +2992,117 @@ def _lm_long_prefill(model, seed):
             "bf16_one_pass_vs_float32": err_one}
 
 
+@contextlib.contextmanager
+def _module_flag(module, flag: str, value: bool):
+    """Set a module-level switch for the duration (as the reference's test
+    flips CHUNKED_SSD / CHUNKED_WKV)."""
+    old = getattr(module, flag)
+    setattr(module, flag, value)
+    try:
+        yield
+    finally:
+        setattr(module, flag, old)
+
+
+def _scan_checks(model, seed):
+    """The chunked form against the recurrent form at full width on
+    LM_SCAN_T tokens: layer 0's time_mix (RWKV6) or first mamba2_forward
+    (hybrid) in float32 on that layer's real input, the module flag flipped
+    around the call, output and final state held to tests/test_mamba2.py's
+    bars (gated); beside it the whole model's bf16 logits both ways
+    (reported)."""
+    from repro_torch.models import mamba2 as M2
+    from repro_torch.models import rwkv6 as R6
+    from repro_torch.models.layers import layer_norm, rms_norm
+    from repro_torch.models.transformer import RWKVLM
+    cfg = model.cfg
+    g = torch.Generator(device=LM_DEVICE).manual_seed(seed + 4)
+    inp = torch.randint(0, cfg.vocab, (1, LM_SCAN_T), generator=g,
+                        device=LM_DEVICE, dtype=torch.int32)
+    f32 = torch.float32
+    with torch.inference_mode():
+        x = model.embed_in(inp)
+        if isinstance(model, RWKVLM):
+            module, flag = R6, "CHUNKED_WKV"
+            lp = copy.deepcopy(model.layers[0]).to(f32)
+            h = layer_norm(layer_norm(x, model.ln0, model.ln0_b).to(f32),
+                           lp.ln1, lp.ln1_b)
+            st = R6.init_state(1, cfg.d_model, cfg.n_heads, f32, LM_DEVICE)
+
+            def layer():
+                y, _, S = R6.time_mix(lp.tm, h, st.tm_x, st.S, cfg.n_heads)
+                return y, S
+        else:
+            module, flag = M2, "CHUNKED_SSD"
+            lp = copy.deepcopy(model.mamba_groups[0][0]).to(f32)
+            h = rms_norm(x.to(f32), lp.ln, offset=cfg.norm_offset)
+            st = M2.init_state(1, model.d_inner, cfg.ssm.d_state,
+                               cfg.ssm.head_dim, f32, LM_DEVICE)
+
+            def layer():
+                y, new = M2.mamba2_forward(
+                    lp.m, h, st, d_inner=model.d_inner,
+                    d_state=cfg.ssm.d_state, head_dim=cfg.ssm.head_dim)
+                return y, new.h
+        out, ms = {}, {}
+        for chunked in (False, True):
+            with _module_flag(module, flag, chunked):
+                out[chunked], ms[chunked] = _timed_call(layer)
+                out[chunked, "model"], ms[chunked, "model"] = _timed_call(
+                    lambda: model.forward(inp))
+    rtol, atol = LM_SCAN_TOL[flag]
+    worst = {}
+    for i, name in enumerate(("y", "state")):
+        got, want = out[True][i], out[False][i]
+        check(bool(torch.isfinite(got).all()), f"{cfg.name}: non-finite "
+              f"chunked {name}")
+        worst[name] = float(((got - want).abs()
+                             / (atol + rtol * want.abs())).max())
+        check(worst[name] <= 1.0, f"{cfg.name}: {flag} {name} at "
+              f"{LM_SCAN_T} tokens in float32 exceeds rtol {rtol} / atol "
+              f"{atol} of the recurrent form ({worst[name]}x the bound)")
+    del lp, out[False], out[True]
+    return {"flag": flag, "tokens": LM_SCAN_T, "rtol": rtol, "atol": atol,
+            "layer_y_worst_over_bound": worst["y"],
+            "layer_state_worst_over_bound": worst["state"],
+            "layer_recurrent_ms": round(ms[False], 4),
+            "layer_chunked_ms": round(ms[True], 4),
+            "model_bf16_rel_err": _rel(out[True, "model"],
+                                       out[False, "model"]),
+            "model_recurrent_ms": round(ms[False, "model"], 4),
+            "model_chunked_ms": round(ms[True, "model"], 4)}
+
+
+def phase_lm_recurrent(seed: int, card):
+    """The recurrent families at full width, each freed before the next:
+    rwkv6-1.6b (RWKV6) and zamba2-7b (81 Mamba2 layers, the shared block
+    every 6), the traffic through two engines, prefill + decode against
+    forward (in bf16, then with the weights widened to float32: bf16's
+    roundings grow through these random-weight stacks, ROADMAP C34), the
+    chunked scans against the recurrent ones."""
+    for name in LM_RECURRENT:
+        cfg, model = _lm_model(name, seed, card)
+        _lm_traffic(model, cfg, seed, card)
+        err = _decode_consistency(model, seed, LM_DECODE_TOL)
+        scans = _scan_checks(model, seed)
+        memory = torch.cuda.max_memory_allocated()
+        model.to(torch.float32)
+        model.cfg = dataclasses.replace(cfg, dtype="float32")
+        err32 = _decode_consistency(model, seed, LM_F32_TOL)
+        emit("lm_checks", model=cfg.name, card=card, decode_rel_err=err,
+             decode_tol=LM_DECODE_TOL, decode_rel_err_float32=err32,
+             decode_float32_tol=LM_F32_TOL,
+             chunked_against_recurrent=scans, max_memory_allocated=memory)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def phase_lm(seed: int, card):
     """The LM serving path at full width: qwen3-8b (GQA, dense), then
-    deepseek-v2-lite-16b (MLA, 64 experts top-6, first layer dense), each
-    initialized in bf16 on the card from a seeded generator and freed before
-    the next."""
+    deepseek-v2-lite-16b (MLA, 64 experts top-6, first layer dense), then
+    the recurrent families (``phase_lm_recurrent``), each initialized in
+    bf16 on the card from a seeded generator and freed before the next."""
     t_phase = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
@@ -3004,6 +3153,7 @@ def phase_lm(seed: int, card):
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    phase_lm_recurrent(seed, card)
     emit("lm_phase", seconds=round(time.perf_counter() - t_phase, 3))
 
 

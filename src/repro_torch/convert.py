@@ -289,26 +289,46 @@ def _flat_leaves(tree, prefix=""):
             yield path, value
 
 
-def lm_state_dict_from_jax(cfg, params) -> Dict[str, torch.Tensor]:
-    """A state dict for ``DenseLM(cfg)`` from the JAX package's params tree
-    of the same config, handed over as nested dicts of numpy arrays.
+# the params tree's layer stacks -> how many leading axes each stacks
+_LM_STACKS = {"layers": 1, "first_layers": 1, "mamba_groups": 2,
+              "mamba_tail": 1, "lora": 1}
 
-    The layer stacks ``layers`` / ``first_layers`` are unstacked along axis
-    0 into ``layers.<i>.<name>``; every leaf keeps its dtype.  Raises
-    ``ValueError`` on a leaf the model has no weight for, on a shape that
-    differs from the model's, and on a weight the tree does not give."""
-    from repro_torch.models.transformer import DenseLM
+
+def _unstacked(path, leaf):
+    """(state-dict key, array) pieces of one leaf: a leaf of a layer stack
+    is split along its stacked axes (``mamba_groups.w_in`` of shape
+    (G, P, ...) -> ``mamba_groups.<g>.<p>.w_in``), any other kept whole."""
+    group, _, rest = path.partition(".")
+    axes = _LM_STACKS.get(group, 0) if rest else 0
+    if not axes:
+        return [(path, leaf)]
+    pieces = [(group, leaf)]
+    for _ in range(axes):
+        pieces = [(f"{key}.{i}", a[i]) for key, a in pieces
+                  for i in range(np.shape(a)[0])]
+    return [(f"{key}.{rest}", a) for key, a in pieces]
+
+
+def lm_state_dict_from_jax(cfg, params) -> Dict[str, torch.Tensor]:
+    """A state dict for ``build_model(cfg)`` (any family) from the JAX
+    package's params tree of the same config, handed over as nested dicts
+    of numpy arrays.
+
+    The layer stacks are unstacked into module paths: ``layers`` /
+    ``first_layers`` / ``mamba_tail`` / ``lora`` along axis 0
+    (``layers.<i>.<name>``), ``mamba_groups`` along its two leading axes
+    (``mamba_groups.<g>.<p>.<name>``); nested dicts (``tm``, ``cm``, ``m``,
+    ``shared.attn``) become dotted paths.  Every leaf keeps its dtype.
+    Raises ``ValueError`` on a leaf the model has no weight for, on a shape
+    that differs from the model's, and on a weight the tree does not give;
+    the model's names and shapes come from a skeleton on the meta
+    device."""
+    from repro_torch.models.transformer import build_model
     expected = {k: v.shape for k, v in
-                DenseLM(cfg, device="meta").state_dict().items()}
+                build_model(cfg, device="meta").state_dict().items()}
     out: Dict[str, torch.Tensor] = {}
     for path, leaf in _flat_leaves(params):
-        group, _, rest = path.partition(".")
-        if group in ("layers", "first_layers") and rest:
-            pieces = [(f"{group}.{i}.{rest}", leaf[i])
-                      for i in range(np.shape(leaf)[0])]
-        else:
-            pieces = [(path, leaf)]
-        for key, a in pieces:
+        for key, a in _unstacked(path, leaf):
             if key not in expected:
                 raise ValueError(f"{cfg.name}: leaf {key!r} not consumed: "
                                  "the model has no such weight")

@@ -3,8 +3,9 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \
       --reduced --requests 8 --max-new 16 [--device cpu]
 
-Weights are random, drawn from ``--seed`` on the device (the card by
-default).
+Every token-mode arch serves: the dense family, ``rwkv6-1.6b`` (ssm) and
+``zamba2-7b`` (hybrid).  Weights are random, drawn from ``--seed`` on the
+device (the card by default).
 """
 from __future__ import annotations
 
@@ -51,9 +52,6 @@ def main(argv=None):
     if cfg.input_mode != "tokens":
         raise SystemExit(f"{cfg.name} has a stub frontend (embeds input); "
                          "serve the token-mode archs")
-    if cfg.family in ("ssm", "hybrid"):
-        raise SystemExit(f"{cfg.name}: the {cfg.family} family is not "
-                         "ported yet (ROADMAP A17b)")
     dev = resolve(args.device)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     model = build_model(cfg, device=dev, generator=gen)

@@ -1,4 +1,5 @@
-"""The LM model zoo's dense family: ``layers`` (norms, rope, gated MLPs),
-``attention`` (GQA prefill / decode, ring and int8 caches), ``mla``
-(DeepSeek-V2 latent attention), ``moe`` (sort-based capacity dispatch) and
-``transformer`` (``DenseLM``, ``build_model``)."""
+"""The LM model zoo: ``layers`` (norms, rope, gated MLPs), ``attention``
+(GQA prefill / decode, ring and int8 caches), ``mla`` (DeepSeek-V2 latent
+attention), ``moe`` (sort-based capacity dispatch), ``rwkv6`` (RWKV6
+time-mix and channel-mix), ``mamba2`` (the Mamba2 SSD block) and
+``transformer`` (``DenseLM``, ``RWKVLM``, ``HybridLM``, ``build_model``)."""

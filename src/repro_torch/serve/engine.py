@@ -4,8 +4,10 @@
 slots between ticks; each slot holds its own batch-1 decode state, filled
 by a prefill of the prompt; greedy or temperature sampling produces tokens
 until EOS or ``max_new_tokens``.  The engine takes the model module (a
-``DenseLM``); tokens come back to the host once per slot and tick, which is
-the synchronization that ends each step.
+``DenseLM``, ``RWKVLM`` or ``HybridLM``: whatever the decode state holds —
+KV caches, recurrent states, a ring — stays inside the slot's state);
+tokens come back to the host once per slot and tick, which is the
+synchronization that ends each step.
 
 ``SpmvServingEngine`` — the paper's workload as a service: clients submit
 (matrix_id, x) products; matrices are registered once and get an
@@ -45,7 +47,8 @@ class ServingEngine:
     """Token generation over ``max_slots`` independent slots.
 
     ``model`` provides ``prefill(prompt, max_len=)`` and
-    ``decode_step(state, tokens)`` (``DenseLM`` does) and a ``device``;
+    ``decode_step(state, tokens)`` (every family of
+    ``models.transformer.build_model`` does) and a ``device``;
     temperature sampling draws from a ``torch.Generator`` on that device
     seeded with ``seed``."""
 

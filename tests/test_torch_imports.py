@@ -60,6 +60,9 @@ def test_sources_found():
                  "src/repro_torch/models/attention.py",
                  "src/repro_torch/models/mla.py",
                  "src/repro_torch/models/moe.py",
+                 "src/repro_torch/models/rwkv6.py",
+                 "src/repro_torch/models/mamba2.py",
+                 "src/repro_torch/configs/rwkv6_1_6b.py",
                  "src/repro_torch/models/transformer.py",
                  "src/repro_torch/launch/serve.py"):
         assert must in names, must

@@ -18,21 +18,16 @@ from repro.configs.base import registry as jregistry
 from repro_torch import convert
 from repro_torch.configs.base import get_config as tget
 from repro_torch.configs.base import registry as tregistry
-from repro_torch.models.transformer import DenseLM, build_model
+from repro_torch.models.transformer import DenseLM
 
-from test_torch_parity_helpers import lm_inputs, lm_pair, np32, rel_err
+from test_torch_parity_helpers import (clone_state, lm_inputs, lm_pair, np32,
+                                       rel_err)
 
 DENSE_ARCHS = ["deepseek-v2-lite-16b", "gemma-2b", "granite-3-2b",
                "llava-next-34b", "musicgen-large", "qwen1.5-0.5b",
                "qwen3-8b", "qwen3-moe-235b-a22b"]
 B, S, STEPS, EXTRA = 2, 12, 3, 8
 REL = 1e-4
-
-
-def _snapshot(state):
-    return {k: ({kk: vv.clone() for kk, vv in v.items()}
-                if isinstance(v, dict) else v.clone())
-            for k, v in state.items()}
 
 
 def run_pair(arch, dtype="float32", **overrides):
@@ -52,7 +47,7 @@ def run_pair(arch, dtype="float32", **overrides):
         tstate, tlog = tm.prefill(tseq[:, :S], max_len=S + EXTRA)
         jstate, jlog = pre(params, seq[:, :S], max_len=S + EXTRA)
         out["prefill_logits"] = (tlog, jlog)
-        out["prefill_state"] = (_snapshot(tstate), jstate)
+        out["prefill_state"] = (clone_state(tstate), jstate)
         for i in range(STEPS):
             tok = seq[:, S + i:S + i + 1]
             tstate, tlog = tm.decode_step(tstate, torch.from_numpy(tok))
@@ -182,12 +177,6 @@ def test_config_copy_equals_reference(arch):
     assert tget(arch).compute_dtype == torch.bfloat16
     with pytest.raises(KeyError, match="unknown arch"):
         tget("no-such-arch")
-
-
-@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-7b"])
-def test_build_model_refuses_recurrent_families(arch):
-    with pytest.raises(NotImplementedError, match="A17b"):
-        build_model(tget(arch, reduced=True), device="cpu")
 
 
 def test_entry_points_default_to_the_card():

@@ -22,7 +22,8 @@ def _requests(cls, vocab, n=7, seed=0):
                 max_new_tokens=3 + i % 4) for i in range(n)]
 
 
-@pytest.mark.parametrize("arch", ["granite-3-2b", "deepseek-v2-lite-16b"])
+@pytest.mark.parametrize("arch", ["granite-3-2b", "deepseek-v2-lite-16b",
+                                  "rwkv6-1.6b", "zamba2-7b"])
 def test_greedy_outputs_equal_the_reference_engine(arch):
     """float32, 7 requests through 3 slots (prompts of 5-7 tokens, budgets
     of 3-6, eos 0): the same requests retire with the same tokens in the
@@ -182,8 +183,19 @@ def test_cpu_launcher_serves_the_reduced_config(capsys):
     assert "[serve] 3 requests" in out and "on cpu" in out
 
 
-@pytest.mark.parametrize("arch,why", [("musicgen-large", "embeds"),
-                                      ("zamba2-7b", "A17b")])
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-7b"])
+def test_cpu_launcher_serves_the_recurrent_families(arch, capsys):
+    """The ssm and hybrid families through the launcher: every request
+    retires; the hybrid's ring (64 positions) is shorter than max_len."""
+    done = launch.main(["--arch", arch, "--reduced", "--device", "cpu",
+                        "--requests", "3", "--max-new", "5",
+                        "--max-len", "128"])
+    assert sorted(r.uid for r in done) == [0, 1, 2]
+    assert all(1 <= len(r.out_tokens) <= 5 for r in done)
+    assert "[serve] 3 requests" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch,why", [("musicgen-large", "embeds")])
 def test_cpu_launcher_refuses(arch, why):
     with pytest.raises(SystemExit, match=why):
         launch.main(["--arch", arch, "--reduced", "--device", "cpu"])

@@ -136,3 +136,13 @@ def rel_err(got, want):
     got, want = np32(got).astype(np.float32), np32(want).astype(np.float32)
     assert got.shape == want.shape, (got.shape, want.shape)
     return float(np.abs(got - want).max()) / float(np.abs(want).max())
+
+
+def clone_state(state):
+    """A copy of a decode state (dicts, NamedTuples of tensors, None):
+    decode writes the port's states in place."""
+    if isinstance(state, dict):
+        return {k: clone_state(v) for k, v in state.items()}
+    if isinstance(state, tuple):
+        return type(state)(*(clone_state(v) for v in state))
+    return None if state is None else state.clone()
