@@ -67,6 +67,22 @@ deployment would call real, one after the other:
             (one layer in float32 on 512 tokens, gated; the whole model
             in bf16, reported).  It adds no kernel.
 
+  train     after the LM phase, single-device training at full width:
+            qwen1.5-0.5b uncut (24 layers, d 1024, vocab 151,936, tied
+            embeddings), random bf16 weights from ``--seed``, the port's
+            counted pipeline at 8 x 512 tokens, AdamW with float32
+            moments.  A few ``Trainer`` steps with full remat (the loss
+            must fall), the same step twice from one state (bit for bit),
+            one step under ``torch.profiler``, the step's parts timed
+            alone, remat none / full / dots from one state (params within
+            the reference test's bar), two microbatches accumulated in bf16
+            with error feedback, 4 straight steps against 2 + a checkpoint
+            + a fresh ``Trainer`` restoring it + 2 (params and moments bit
+            for bit), and the reduced config's step in float32 on the card
+            against the CPU's.  Step ms (CUDA events) and tokens/s beside
+            the flop floor 6·N·T over the data sheet's dense bf16 peak.  It
+            adds no kernel.
+
 Each path's two matrices are served by one ``SpmvServingEngine`` and solved
 by ``cg_solve`` / ``bicgstab``.  After the ``kernel`` and ``flat`` paths'
 main runs, a tune phase registers their non-symmetric matrix (``fem_ns``,
@@ -3157,6 +3173,346 @@ def phase_lm(seed: int, card):
     emit("lm_phase", seconds=round(time.perf_counter() - t_phase, 3))
 
 
+# single-device training at full width: launch/train.py's example config
+TRAIN_ARCH = "qwen1.5-0.5b"
+TRAIN_BATCH, TRAIN_SEQ = 8, 512            # 4,096 tokens a step
+TRAIN_STEPS = 6                            # the loss must fall over them
+TRAIN_OPT = {"lr_peak": 3e-4, "warmup_steps": 1, "total_steps": 100}
+# tests/test_train_infra.py::test_remat_grad_equivalence
+TRAIN_REMAT_RTOL, TRAIN_REMAT_ATOL = 1e-3, 1e-5
+TRAIN_CPU_TOL = 1e-4   # the reduced step in float32, card against the CPU
+# a microbatched step's mean loss against the whole batch's, both in bf16
+TRAIN_MB_LOSS_TOL = 1e-2
+BF16_FLOPS_PER_S = 989.4e12    # H100 SXM5 data sheet, dense bf16
+
+
+class TimedStep:
+    """A train step with each call bracketed by CUDA events (ms per step:
+    the device's time between the events, launch gaps included)."""
+
+    def __init__(self, step):
+        self.step = step
+        self.ms = []
+
+    def __call__(self, state, batch):
+        (new, metrics), ms = _timed_call(lambda: self.step(state, batch))
+        self.ms.append(ms)
+        return new, metrics
+
+
+def _equal_states(a, b):
+    """Leaf paths where two train states differ (bit for bit)."""
+    from repro_torch import tree
+    return ["/".join(p) for (p, x), y in zip(tree.flatten_with_paths(a),
+                                             tree.leaves(b))
+            if not torch.equal(x, y)]
+
+
+def _profile_step(step_fn, state, batch, top=12):
+    """One train step under torch.profiler: kernel and copy launches, the
+    device's busy ms (the sum of their times) and the ``top`` kernels by
+    device time (launches and ms summed by name); None when the profiler
+    sees no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = step_fn(state, batch)
+        torch.cuda.synchronize()
+    device = [ev for ev in prof.events()
+              if ev.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(ev.time_range.elapsed_us() for ev in device)
+    del out
+    if busy_us <= 0:
+        return None
+    by_name = {}
+    for ev in device:
+        n, us = by_name.get(ev.name, (0, 0.0))
+        by_name[ev.name] = (n + 1, us + ev.time_range.elapsed_us())
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+    return {"device_launches": len(device), "device_busy_ms": busy_us / 1e3,
+            "top_kernels": [{"name": name[:80], "launches": n,
+                             "ms": round(us / 1e3, 3)}
+                            for name, (n, us) in ranked]}
+
+
+def _train_breakdown(model, opt_cfg, state, pipe, step):
+    """The step's parts, each timed alone by CUDA events after a warm-up
+    call: the batch (host clock: the CPU stream and the copy to the card),
+    the loss alone (no grad), the loss and its gradient (full remat) and
+    the AdamW update."""
+    from repro_torch import convert
+    from repro_torch.models.transformer import call_with
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as train_step
+    t0 = time.perf_counter()
+    batch = pipe.batch_at(step)
+    torch.cuda.synchronize()
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    weights = convert.lm_state_dict_from_tree(state.params)
+
+    def forward():
+        with torch.no_grad():
+            return call_with(model, weights, model.loss, batch)
+
+    def forward_backward():
+        return train_step.value_and_grad(model, state.params, batch)
+
+    out = {"batch_host_ms": round(batch_ms, 4)}
+    for name, fn in (("forward_ms", forward),
+                     ("value_and_grad_ms", forward_backward)):
+        fn()
+        out[name] = round(_timed_call(fn)[1], 4)
+    grads = forward_backward()[2]
+
+    def update():
+        return adamw.update(opt_cfg, state.opt, state.params, grads)
+
+    update()
+    out["update_ms"] = round(_timed_call(update)[1], 4)
+    return out
+
+
+def _train_remat_and_microbatches(model, opt_cfg, state, batch, card):
+    """One step each with remat none, full and dots from the same state
+    (params held to the reference test's bar), and one with two
+    microbatches accumulated in bf16 with error feedback."""
+    from repro_torch import tree
+    from repro_torch.train.step import make_train_step
+    out = {}
+    for remat in ("none", "full", "dots"):
+        torch.cuda.reset_peak_memory_stats()
+        (new, metrics), ms = _timed_call(lambda: make_train_step(
+            model, opt_cfg, remat=remat)(state, batch))
+        out[remat] = {"params": new.params, "loss": float(metrics["loss"]),
+                      "ms": round(ms, 4),
+                      "max_memory_allocated":
+                          torch.cuda.max_memory_allocated()}
+        del new
+    worst = {}
+    for remat in ("full", "dots"):
+        worst[remat] = 0.0
+        for a, b in zip(tree.leaves(out["none"]["params"]),
+                        tree.leaves(out[remat]["params"])):
+            a, b = a.float(), b.float()
+            over = float(((a - b).abs() / (TRAIN_REMAT_ATOL
+                                            + TRAIN_REMAT_RTOL * a.abs()))
+                         .max())
+            worst[remat] = max(worst[remat], over)
+        check(worst[remat] <= 1.0, f"{TRAIN_ARCH}: remat {remat} params "
+              f"{worst[remat]}x the bound (rtol {TRAIN_REMAT_RTOL}, atol "
+              f"{TRAIN_REMAT_ATOL}) from remat none")
+    (new, metrics), ms = _timed_call(lambda: make_train_step(
+        model, opt_cfg, microbatches=2, remat="full",
+        accum_dtype="bfloat16")(state, batch))
+    mb_loss = float(metrics["loss"])
+    check(all(bool(torch.isfinite(p.float()).all())
+              for p in tree.leaves(new.params)),
+          f"{TRAIN_ARCH}: non-finite params after a microbatched step")
+    mb_err = abs(mb_loss - out["none"]["loss"]) / out["none"]["loss"]
+    check(mb_err < TRAIN_MB_LOSS_TOL, f"{TRAIN_ARCH}: two microbatches' "
+          f"mean loss {mb_loss} against the whole batch's "
+          f"{out['none']['loss']}")
+    del new
+    emit("train_remat", model=TRAIN_ARCH, card=card,
+         **{r: {k: v for k, v in o.items() if k != "params"}
+            for r, o in out.items()},
+         worst_over_bound=worst, rtol=TRAIN_REMAT_RTOL, atol=TRAIN_REMAT_ATOL,
+         microbatches_2_bf16={"ms": round(ms, 4), "loss": mb_loss,
+                              "loss_rel_err": mb_err,
+                              "tol": TRAIN_MB_LOSS_TOL})
+
+
+def _train_resume(model, opt_cfg, state0, pipe, card):
+    """4 straight Trainer steps against 2, a Trainer checkpoint to a temp
+    dir, a fresh Trainer that restores it, and 2 more: params and moments
+    bit for bit equal.  The checkpoint is the phase's only disk write."""
+    from repro_torch.train.step import make_train_step
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    step_fn = make_train_step(model, opt_cfg, remat="full")
+    straight = Trainer(TrainerConfig(total_steps=4), step_fn, pipe,
+                       state0).run(start_step=0)
+    seconds = {}
+
+    def timed(name, fn):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            seconds[name] = round(time.perf_counter() - t0, 3)
+            return out
+        return call
+
+    d = tempfile.mkdtemp(prefix="train_ckpt_")
+    try:
+        first = Trainer(TrainerConfig(total_steps=2, ckpt_dir=d,
+                                      ckpt_every=10_000), step_fn, pipe,
+                        state0)
+        first._save = timed("save_s", first._save)
+        first.run(start_step=0)
+        del first
+        path = os.path.join(d, "step_000000002")
+        ckpt_bytes = sum(os.path.getsize(os.path.join(path, f))
+                         for f in os.listdir(path))
+        template = state0
+        second = Trainer(TrainerConfig(total_steps=4, ckpt_dir=d), step_fn,
+                         pipe, template)
+        start = timed("restore_s", second.try_restore)()
+        check(start == 2, f"{TRAIN_ARCH}: restored step {start}, not 2")
+        second.cfg.ckpt_dir = None        # no second multi-GB write
+        resumed = second.run(start_step=start)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    differ = _equal_states(straight, resumed)
+    check(not differ, f"{TRAIN_ARCH}: the resumed run differs from the "
+          f"straight one at {differ[:5]}")
+    emit("train_resume", model=TRAIN_ARCH, card=card, steps="4 straight; "
+         "2 + checkpoint + restore + 2", bit_equal=True,
+         checkpoint_bytes=ckpt_bytes, **seconds)
+    return ckpt_bytes, seconds
+
+
+def _train_reduced_card_vs_cpu(seed, card):
+    """The reduced config's step in float32 on the card against the same
+    step on the CPU: loss, grad norm and both moments within
+    TRAIN_CPU_TOL of the largest value of each leaf; params within
+    TRAIN_CPU_TOL of it plus a tenth of the learning rate (Adam's first
+    step turns a float32 rounding of a gradient element near eps into a
+    move of up to the learning rate; tests/test_torch_train_step.py)."""
+    from repro_torch import tree
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import pipeline_for_model
+    from repro_torch.models.transformer import build_model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import init_train_state, make_train_step
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH, reduced=True),
+                              dtype="float32")
+    opt_cfg = AdamWConfig(**TRAIN_OPT)
+    out = {}
+    for dev in ("cpu", LM_DEVICE):
+        model = build_model(cfg, device=dev, generator=torch.Generator(
+            device="cpu").manual_seed(seed)) if dev == "cpu" else \
+            build_model(cfg, device=dev)
+        if dev != "cpu":
+            model.load_state_dict(out["cpu"][0].state_dict())
+        pipe = pipeline_for_model(cfg, 4, 64, seed=seed, device=dev)
+        state = init_train_state(model, opt_cfg)
+        new, metrics = make_train_step(model, opt_cfg, microbatches=2,
+                                       remat="dots")(state, pipe.batch_at(0))
+        out[dev] = (model, new, metrics)
+    (_, want, wm), (_, got, gm) = out["cpu"], out[LM_DEVICE]
+    errs = {k: abs(float(gm[k]) - float(wm[k])) / abs(float(wm[k]))
+            for k in ("loss", "grad_norm")}
+    for name in ("m", "v"):
+        errs[name] = max(_rel(g.cpu(), w) for g, w in zip(
+            tree.leaves(getattr(got.opt, name)),
+            tree.leaves(getattr(want.opt, name))))
+    for k, e in errs.items():
+        check(e < TRAIN_CPU_TOL, f"reduced {TRAIN_ARCH} step, card against "
+              f"CPU: {k} rel err {e} >= {TRAIN_CPU_TOL}")
+    lr = wm["lr"]
+    worst = 0.0
+    for g, w in zip(tree.leaves(got.params), tree.leaves(want.params)):
+        bound = TRAIN_CPU_TOL * float(w.abs().max()) + 0.1 * lr
+        worst = max(worst, float((g.cpu() - w).abs().max()) / bound)
+    check(worst <= 1.0, f"reduced {TRAIN_ARCH} step, card against CPU: "
+          f"params {worst}x the bound")
+    return {"rel_err": errs, "params_worst_over_bound": worst,
+            "tol": TRAIN_CPU_TOL, "dtype": "float32",
+            "microbatches": 2, "remat": "dots"}
+
+
+def phase_train(seed: int, card):
+    """Single-device training at full width: qwen1.5-0.5b uncut (24 layers,
+    d 1024, vocab 151,936, tied embeddings), random bf16 weights from the
+    seed, the port's pipeline at B 8 x S 512, AdamW in float32.  A few
+    Trainer steps with full remat (the loss must fall), one step profiled,
+    remat none / full / dots from one state, two bf16-accumulated
+    microbatches, resume through a checkpoint bit for bit, and the reduced
+    config's step on the card against the CPU's."""
+    from repro_torch import tree
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import pipeline_for_model
+    from repro_torch.models.transformer import build_model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import init_train_state, make_train_step
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(TRAIN_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=LM_DEVICE).manual_seed(seed)
+    model = build_model(cfg, device=LM_DEVICE, generator=gen)
+    opt_cfg = AdamWConfig(**TRAIN_OPT)
+    state0 = init_train_state(model, opt_cfg)
+    pipe = pipeline_for_model(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=seed,
+                              device=LM_DEVICE)
+    n_params = sum(p.numel() for p in tree.leaves(state0.params))
+    param_bytes = _nbytes(tree.leaves(state0.params))
+    moment_bytes = _nbytes(tree.leaves(state0.opt))
+
+    timed = TimedStep(make_train_step(model, opt_cfg, remat="full"))
+    trainer = Trainer(TrainerConfig(total_steps=TRAIN_STEPS, log_every=1),
+                      timed, pipe, state0)
+    t0 = time.perf_counter()
+    state = trainer.run(start_step=0)
+    run_s = time.perf_counter() - t0
+    memory = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in trainer.history if "loss" in h]
+    check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
+          f"{TRAIN_ARCH}: losses {losses}")
+    check(losses[-1] < losses[0], f"{TRAIN_ARCH}: the loss did not fall "
+          f"over {TRAIN_STEPS} steps: {losses}")
+    # the same step twice from one state: what resume's bit-equality needs
+    batch = pipe.batch_at(TRAIN_STEPS)
+    again = [timed.step(state, batch)[0] for _ in range(2)]
+    differ = _equal_states(*again)
+    del again
+    check(not differ, f"{TRAIN_ARCH}: one step from one state differs "
+          f"between two runs at {differ[:5]}")
+    prof = _profile_step(timed.step, state, batch)
+    parts = _train_breakdown(model, opt_cfg, state, pipe, TRAIN_STEPS + 1)
+
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steady = timed.ms[1:]
+    step_ms = float(np.median(steady))
+    flops = 6 * cfg.active_param_count() * tokens
+    floor_ms = flops / BF16_FLOPS_PER_S * 1e3
+    emit("train", model=TRAIN_ARCH, card=card, layers=cfg.n_layers,
+         d_model=cfg.d_model, vocab=cfg.vocab, dtype=cfg.dtype,
+         batch=TRAIN_BATCH, seq=TRAIN_SEQ, tokens_per_step=tokens,
+         remat="full", params=n_params,
+         active_param_count_formula=cfg.active_param_count(),
+         param_bytes=param_bytes, moment_bytes=moment_bytes,
+         steps=TRAIN_STEPS, loss=losses,
+         step_ms=[round(m, 4) for m in timed.ms],
+         step_ms_median_after_first=round(step_ms, 4),
+         first_step_s=round(timed.ms[0] / 1e3, 3), step_parts=parts,
+         tokens_per_s=round(tokens / step_ms * 1e3, 1),
+         trainer_run_s=round(run_s, 3),
+         host_step_s=[round(h["dt"], 4) for h in trainer.history
+                      if "dt" in h],
+         flop_floor_ms=round(floor_ms, 4), flops_per_step=flops,
+         bf16_peak_flops=BF16_FLOPS_PER_S,
+         floor_share=round(floor_ms / step_ms, 4),
+         step_profile=prof,
+         device_idle_share=(round(1 - prof["device_busy_ms"] / step_ms, 4)
+                            if prof else None),
+         step_repeats_bit_for_bit=True,
+         max_memory_allocated=memory)
+    _train_remat_and_microbatches(model, opt_cfg, state, batch, card)
+    del state, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    _train_resume(model, opt_cfg, state0, pipe, card)
+    del model, state0
+    gc.collect()
+    torch.cuda.empty_cache()
+    reduced = _train_reduced_card_vs_cpu(seed, card)
+    emit("train_phase", reduced_card_vs_cpu=reduced,
+         seconds=round(time.perf_counter() - t_phase, 3))
+
+
 def csrc_abs(n, ia, ja, ad, al, au):
     from repro_torch.core import csrc
     return csrc.from_assembly(n, ia, ja, np.abs(ad), np.abs(al), np.abs(au))
@@ -3245,6 +3601,7 @@ def main() -> int:
     phase_colorful(int(round(math.sqrt(args.n / 8))), args.seed)
     emit("colorful_phase", seconds=round(time.perf_counter() - t0, 3))
     phase_lm(args.seed, card)
+    phase_train(args.seed, card)
     emit("total", seconds=round(time.perf_counter() - t_start, 3))
 
     print(json.dumps({"kernels": rows}), flush=True)

@@ -213,7 +213,9 @@ class AssemblySchedule:
         return bound
 
     # ------------------------------------------------------------------
-    # Serialization (npz arrays + JSON meta, the JAX package's layout)
+    # Serialization (npz arrays + JSON meta, the JAX package's layout;
+    # written uncompressed: zlib took most of a full-size save's time,
+    # and np.load reads either form)
     # ------------------------------------------------------------------
 
     def save_npz(self, path: str):
@@ -248,7 +250,7 @@ class AssemblySchedule:
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
         tmp = path + ".tmp.npz"
         with open(tmp, "wb") as f:
-            np.savez_compressed(f, __meta__=np.frombuffer(
+            np.savez(f, __meta__=np.frombuffer(
                 json.dumps(meta, sort_keys=True).encode(), dtype=np.uint8),
                 **arrays)
         os.replace(tmp, path)

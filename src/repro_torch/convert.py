@@ -294,18 +294,23 @@ _LM_STACKS = {"layers": 1, "first_layers": 1, "mamba_groups": 2,
               "mamba_tail": 1, "lora": 1}
 
 
-def _unstacked(path, leaf):
+def _rows(a):
+    return [a[i] for i in range(np.shape(a)[0])]
+
+
+def _unstacked(path, leaf, split=_rows):
     """(state-dict key, array) pieces of one leaf: a leaf of a layer stack
     is split along its stacked axes (``mamba_groups.w_in`` of shape
-    (G, P, ...) -> ``mamba_groups.<g>.<p>.w_in``), any other kept whole."""
+    (G, P, ...) -> ``mamba_groups.<g>.<p>.w_in``) by ``split``, any other
+    kept whole."""
     group, _, rest = path.partition(".")
     axes = _LM_STACKS.get(group, 0) if rest else 0
     if not axes:
         return [(path, leaf)]
     pieces = [(group, leaf)]
     for _ in range(axes):
-        pieces = [(f"{key}.{i}", a[i]) for key, a in pieces
-                  for i in range(np.shape(a)[0])]
+        pieces = [(f"{key}.{i}", row) for key, a in pieces
+                  for i, row in enumerate(split(a))]
     return [(f"{key}.{rest}", a) for key, a in pieces]
 
 
@@ -342,3 +347,58 @@ def lm_state_dict_from_jax(cfg, params) -> Dict[str, torch.Tensor]:
     if missing:
         raise ValueError(f"{cfg.name}: the tree lacks {missing[:5]}")
     return out
+
+
+def lm_params_from_jax(params) -> Dict:
+    """The JAX package's params tree (nested dicts of numpy arrays) as the
+    port's training tree: the same nesting and stacked layout, each leaf a
+    tensor of its dtype (``train.step.TrainState.params``)."""
+    return {k: lm_params_from_jax(v) if isinstance(v, dict)
+            else _leaf_tensor(v) for k, v in params.items()}
+
+
+def lm_params_tree(state_dict) -> Dict:
+    """The params tree in the JAX package's layout from a model's state
+    dict: each layer stack's per-layer weights stacked on its leading
+    axes (``layers.<i>.attn.wq`` -> ``["layers"]["attn"]["wq"]`` of shape
+    (L, ...), ``mamba_groups.<g>.<p>.m.w_in`` -> (G, P, ...)), every other
+    weight nested by its dotted path.  The inverse of
+    :func:`lm_state_dict_from_tree`; the tensors are new (``torch.stack``)
+    except the unstacked ones, which are the state dict's."""
+    out: Dict = {}
+    stacks: Dict = {}
+    for key, t in state_dict.items():
+        group, _, rest = key.partition(".")
+        axes = _LM_STACKS.get(group, 0) if rest else 0
+        if not axes:
+            _nest(out, key.split("."), t)
+            continue
+        parts = rest.split(".")
+        name = (group,) + tuple(parts[axes:])
+        stacks.setdefault(name, {})[tuple(int(i) for i in parts[:axes])] = t
+
+    def stack(pieces, prefix, axes):
+        n = 1 + max(idx[len(prefix)] for idx in pieces)
+        rows = [prefix + (i,) for i in range(n)]
+        if axes == 1:
+            return torch.stack([pieces[r] for r in rows])
+        return torch.stack([stack(pieces, r, axes - 1) for r in rows])
+
+    for name, pieces in stacks.items():
+        _nest(out, list(name), stack(pieces, (), _LM_STACKS[name[0]]))
+    return out
+
+
+def _nest(tree, path, value):
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def lm_state_dict_from_tree(params) -> Dict[str, torch.Tensor]:
+    """A model's state dict from the params tree: each stacked leaf split
+    by ``torch.unbind`` into views, one per layer (its backward is one
+    ``stack`` per leaf, where indexing layer by layer would write a
+    full-size zero tensor for every layer)."""
+    return dict(piece for path, leaf in _flat_leaves(params)
+                for piece in _unstacked(path, leaf, split=torch.unbind))

@@ -148,7 +148,7 @@ class SpmvSchedule:
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
         tmp = path + ".tmp.npz"
         with open(tmp, "wb") as f:
-            np.savez_compressed(f, __meta__=np.frombuffer(
+            np.savez(f, __meta__=np.frombuffer(
                 json.dumps(meta, sort_keys=True).encode(), dtype=np.uint8),
                 **arrays)
         os.replace(tmp, path)
@@ -366,8 +366,8 @@ def schedule_for(M: CSRC, plan: ExecutionPlan, cache=None, p: int = 8,
         sched = refresh_schedule(base, M)
         # the refreshed generation supersedes the base in memory (one
         # schedule per structure, not one per step); the npz already on
-        # disk keeps serving fresh processes, so skip re-compressing a
-        # full artifact per time step
+        # disk keeps serving fresh processes, so skip re-writing a full
+        # artifact per time step
         cache.drop_schedule(base, remove_file=False)
         cache.put_schedule(sched, persist=False)
     else:
@@ -484,7 +484,8 @@ def save_shard_layout_npz(path: str, lay):
     """Serialize any shard layout in the JAX package's layout: scalar
     fields to the JSON meta, arrays (and the embedded RowPartition) to npz,
     bf16 value streams widened to float32 (lossless) and named in the
-    meta, slot streams in the JAX package's shapes."""
+    meta, slot streams in the JAX package's shapes.  Written uncompressed,
+    as every npz of this module (``np.load`` reads either form)."""
     kind = next(k for k, cls in _layout_kinds().items()
                 if isinstance(lay, cls))
     meta = {"version": SHARD_LAYOUT_VERSION, "kind": kind}
@@ -508,7 +509,7 @@ def save_shard_layout_npz(path: str, lay):
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     tmp = path + ".tmp.npz"
     with open(tmp, "wb") as f:
-        np.savez_compressed(f, __meta__=np.frombuffer(
+        np.savez(f, __meta__=np.frombuffer(
             json.dumps(meta, sort_keys=True).encode(), dtype=np.uint8),
             **arrays)
     os.replace(tmp, path)

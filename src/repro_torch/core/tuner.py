@@ -458,7 +458,7 @@ class PlanCache:
         """Store a schedule (memory, and — for path-backed caches — as an
         npz beside the plans).  ``persist=False`` keeps it memory-only:
         the value-refresh path uses it so per-step time stepping does not
-        re-compress a full npz (values + unchanged index streams) every
+        re-write a full npz (values + unchanged index streams) every
         step; the structural generation already on disk keeps serving
         fresh processes, which value-refresh from it on load."""
         key = sched.key()

@@ -23,13 +23,23 @@ array for array; decode writes each layer's slice in place.  ``length``
 is a 0-d int32 tensor kept on the host, so a decode reads it without
 waiting for the card.  Prefill and decode run under
 ``torch.inference_mode()``.
+
+The module's weights are frozen parameters.  Training evaluates
+``model.loss`` on other tensors through :func:`call_with`
+(``train/step.py`` passes views of the params tree in the reference's
+stacked layout); ``model.remat`` (``none``, ``full``, ``dots``) then
+checkpoints each scanned layer, or each hybrid group with the shared
+block, as the reference's ``_maybe_remat`` does.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve
@@ -44,6 +54,48 @@ from .layers import (Params, cross_entropy_loss, init_dense, init_embed,
 
 def _norm(cfg, x, scale):
     return rms_norm(x, scale, offset=cfg.norm_offset)
+
+
+def call_with(model: nn.Module, weights, fn, *args):
+    """``fn(*args)`` with the model's weights named in ``weights`` (state
+    dict keys -> tensors) standing in for its own for the call
+    (``torch.func.functional_call``); the rest stay as they are.  The
+    training path evaluates ``model.loss`` so, on the tensors it
+    differentiates, while the module's own weights stay frozen."""
+    return torch.func.functional_call(
+        _Call(model), {f"model.{k}": w for k, w in weights.items()},
+        (fn,) + args)
+
+
+class _Call(nn.Module):
+    """``functional_call``'s target: calls ``fn(*args)`` while the wrapped
+    model's weights are replaced."""
+
+    def __init__(self, model: nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, fn, *args):
+        return fn(*args)
+
+
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    """JAX's ``dots_with_no_batch_dims_saveable``: keep the output of a
+    matmul without batch dimensions, recompute everything else (a
+    ``bmm`` has one: attention scores and MoE experts are recomputed)."""
+    return (CheckpointPolicy.MUST_SAVE if op in _MATMULS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+# the reference's _maybe_remat policies -> torch.utils.checkpoint's options
+REMAT = {
+    "full": {},
+    "dots": {"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, _dots_saveable)},
+}
 
 
 def _zero_aux(device):
@@ -151,6 +203,7 @@ class _LM(nn.Module):
                              f"{dev}")
         self.cfg = cfg
         self.device = dev
+        self.remat = "none"        # set by train.step.make_train_step
         self._setup()
         with torch.device(dev):
             self._init_embed_head(generator)
@@ -161,6 +214,30 @@ class _LM(nn.Module):
 
     def _init_weights(self, g):
         raise NotImplementedError
+
+    def _remat(self, fn, x, *prefixes):
+        """``fn(x)``, one layer or one hybrid group whose weights are the
+        submodules at ``prefixes``, under the reference's activation
+        checkpointing (``self.remat``: ``none``, ``full`` or ``dots``,
+        applied while grad is enabled).  The weights enter the checkpoint
+        as arguments and are put back in place for the call, so the
+        backward's recomputation reads the tensors the forward read."""
+        if self.remat == "none" or not torch.is_grad_enabled():
+            return fn(x)
+        if self.remat not in REMAT:
+            raise ValueError(f"unknown remat policy {self.remat!r}")
+        names, weights = [], []
+        for prefix in prefixes:
+            for name, w in self.get_submodule(prefix).named_parameters(
+                    prefix=prefix):
+                names.append(name)
+                weights.append(w)
+
+        def body(x, *ws):
+            return call_with(self, dict(zip(names, ws)), fn, x)
+
+        return checkpoint(body, x, *weights, use_reentrant=False,
+                          **REMAT[self.remat])
 
     def _init_embed_head(self, g):
         cfg, dt = self.cfg, self.cfg.compute_dtype
@@ -236,11 +313,16 @@ class DenseLM(_LM):
             x, _ = block_ffn_forward(cfg, lp, x, use_moe=False)
             first_kv.append(kv)
 
-        ks, vs, auxs = [], [], []
-        for lp in self.layers:
-            x, (k, v) = block_attn_forward(cfg, lp, x, positions, kv_chunk,
-                                           window)
+        def body(lp, x):
+            x, kv = block_attn_forward(cfg, lp, x, positions, kv_chunk,
+                                       window)
             x, aux = block_ffn_forward(cfg, lp, x, use_moe=self.use_moe)
+            return x, kv, aux
+
+        ks, vs, auxs = [], [], []
+        for i, lp in enumerate(self.layers):
+            x, (k, v), aux = self._remat(functools.partial(body, lp), x,
+                                         f"layers.{i}")
             if return_kv:
                 ks.append(k)
                 vs.append(v)
@@ -427,8 +509,9 @@ class RWKVLM(_LM):
         x = layer_norm(self.embed_in(inputs), self.ln0, self.ln0_b)
         zero = self._zero_state(x.shape[0])
         states = []
-        for lp in self.layers:
-            x, st = self._block(lp, x, zero)
+        for i, lp in enumerate(self.layers):
+            x, st = self._remat(
+                lambda x, lp=lp: self._block(lp, x, zero), x, f"layers.{i}")
             states.append(st)
         return x, _stack_states(states, R6.RWKVLayerState)
 
@@ -572,13 +655,21 @@ class HybridLM(_LM):
         window = window if window is not None else cfg.sliding_window
         zero = self._zero_mamba_state(x.shape[0])
 
-        gstates, ks, vs = [], [], []
-        for glp, lora in zip(self.mamba_groups, self.lora):
+        def group(glp, lora, x):
+            sts = []
             for lp in glp:
                 x, st = self._mamba_block(lp, x, zero)
-                gstates.append(st)
-            x, (k, v) = self._shared_block_forward(lora, x, positions,
-                                                   window, kv_chunk)
+                sts.append(st)
+            x, kv = self._shared_block_forward(lora, x, positions, window,
+                                               kv_chunk)
+            return x, sts, kv
+
+        gstates, ks, vs = [], [], []
+        for gi, (glp, lora) in enumerate(zip(self.mamba_groups, self.lora)):
+            x, sts, (k, v) = self._remat(
+                functools.partial(group, glp, lora), x,
+                f"mamba_groups.{gi}", "shared", f"lora.{gi}")
+            gstates += sts
             ks.append(k)
             vs.append(v)
         tstates = []

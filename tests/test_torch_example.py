@@ -79,3 +79,36 @@ def test_mesh_example_defaults_to_the_card():
         pytest.skip("a card is present: the default device is usable")
     with pytest.raises(RuntimeError, match="cuda"):
         _mesh_example().main(["--n", "64", "--requests", "1"])
+
+
+TRAIN_EXAMPLE = os.path.join(os.path.dirname(__file__), "..", "examples",
+                             "torch_train_lm.py")
+
+
+def _train_example():
+    spec = importlib.util.spec_from_file_location("torch_train_example",
+                                                  TRAIN_EXAMPLE)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_train_example_lowers_the_loss_on_the_cpu(capsys):
+    """The ~10M-weight CPU size, 8 steps of 4 x 64 tokens, microbatches 2
+    and full remat as in the reference example."""
+    out = _train_example().main(["--device", "cpu", "--steps", "8"])
+    printed = capsys.readouterr().out
+    assert "params: 13.8M on cpu" in printed and "(improved)" in printed
+    steps = [s for s, _ in out["losses"]]
+    assert steps == [0, 7]
+    first, last = out["losses"][0][1], out["losses"][-1][1]
+    assert last < first
+    assert int(out["trainer"].state.step) == 8
+
+
+def test_train_example_defaults_to_the_card():
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="cuda"):
+        _train_example().main(["--steps", "1"])

@@ -11,7 +11,7 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "src", "repro_torch")
-FORBIDDEN = {"jax", "jaxlib", "repro", "flax", "optax"}
+FORBIDDEN = {"jax", "jaxlib", "repro", "flax", "optax", "ml_dtypes"}
 
 
 def _sources():
@@ -64,13 +64,30 @@ def test_sources_found():
                  "src/repro_torch/models/mamba2.py",
                  "src/repro_torch/configs/rwkv6_1_6b.py",
                  "src/repro_torch/models/transformer.py",
-                 "src/repro_torch/launch/serve.py"):
+                 "src/repro_torch/launch/serve.py",
+                 "src/repro_torch/tree.py",
+                 "src/repro_torch/optim/adamw.py",
+                 "src/repro_torch/optim/compress.py",
+                 "src/repro_torch/train/step.py",
+                 "src/repro_torch/train/trainer.py",
+                 "src/repro_torch/data/pipeline.py",
+                 "src/repro_torch/checkpoint/ckpt.py",
+                 "src/repro_torch/launch/train.py"):
         assert must in names, must
 
 
 @pytest.mark.parametrize("path", _sources(),
                          ids=lambda p: os.path.relpath(p, ROOT))
 def test_no_source_imports_jax_or_the_jax_package(path):
+    assert not (_imported_roots(path) & FORBIDDEN), path
+
+
+@pytest.mark.parametrize("path", sorted(
+    os.path.join(ROOT, "examples", f)
+    for f in os.listdir(os.path.join(ROOT, "examples"))
+    if f.startswith("torch_") and f.endswith(".py")),
+    ids=os.path.basename)
+def test_no_example_of_the_port_imports_jax_or_the_jax_package(path):
     assert not (_imported_roots(path) & FORBIDDEN), path
 
 
