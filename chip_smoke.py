@@ -83,6 +83,20 @@ deployment would call real, one after the other:
             the flop floor 6·N·T over the data sheet's dense bf16 peak.  It
             adds no kernel.
 
+  dist      last, distributed training and the analysis tools at
+            qwen1.5-0.5b's width: its 24 decoder blocks as ``layer_fn`` of
+            ``pipeline_apply`` over 4 stages emulated on the card (8
+            microbatches of 1 x 512 tokens) against the blocks in
+            sequence, bit for bit, timed both ways; ``compressed_psum`` at
+            p = 4 over gradient-sized float32 trees (463,987,712 entries a
+            shard) in float32, bf16 and int8, each timed beside its wire
+            bytes and its error against the float32 sum; both also on a
+            1-rank NCCL group; the meta-device dry-run of all 80 (arch x
+            shape x mesh) cells, its one-device train cell against the
+            bytes the train phase holds; and the flops ``FlopCounterMode``
+            counts in a train step with remat none and full against
+            6·N·T.  It adds no kernel.
+
 Each path's two matrices are served by one ``SpmvServingEngine`` and solved
 by ``cg_solve`` / ``bicgstab``.  After the ``kernel`` and ``flat`` paths'
 main runs, a tune phase registers their non-symmetric matrix (``fem_ns``,
@@ -102,7 +116,8 @@ windows of the ``kernel`` path — and solves it by CG on the colorful one.
 Every phase prints one JSON line (the ``calibration`` line: the cost
 model's denominators measured on the card; a ``card_pricing`` line per
 path: the cost model's price of each kernel's plan beside the bound's
-bytes).  Before the last line come one JSON object ``{"kernels": [...]}``
+bytes, and each stream / one-hot pair on the path's packs timed side by
+side, the predicted order beside the measured one).  Before the last line come one JSON object ``{"kernels": [...]}``
 (per kernel: launches on its path's main run, error against the plain
 version, time, plain time, bound, library time, launches on the mesh
 phase's main run; beside K9 the time of the nnz-split fix-up that follows
@@ -242,8 +257,11 @@ def skew_arrays(n, wide, narrow, seed, symmetric, fill=1.0, dyadic=False,
 
 
 def _lower_from_pairs(n, hi, lo):
-    """Row-major lower slots (ia, ja) of the distinct pairs hi > lo."""
-    key = np.unique(hi.astype(np.int64) * n + lo)
+    """Row-major lower slots (ia, ja) of the distinct pairs hi > lo.  The
+    keys are deduplicated after a sort: ``np.unique`` of numpy 2.3 took
+    106 s on the 33 M keys of the power-law matrix, ``np.sort`` 0.5 s."""
+    key = np.sort(hi.astype(np.int64) * n + lo)
+    key = key[np.concatenate(([True], key[1:] != key[:-1]))]
     ros, ja = np.divmod(key, n)
     ia = np.zeros(n + 1, dtype=np.int32)
     np.cumsum(np.bincount(ros, minlength=n), out=ia[1:])
@@ -1501,7 +1519,7 @@ def phase_path_kernels(work: Workload, eng, spec, launches):
     n = work.n
     ks = 8
     rows = []
-    pricing, stats = {}, {}
+    pricing, stats, pairs = {}, {}, []
     for kname, (mid, nrhs) in spec["kernels"].items():
         shape = (n,) if nrhs == 1 else (n, nrhs)
         x = torch.from_numpy(
@@ -1523,6 +1541,9 @@ def phase_path_kernels(work: Workload, eng, spec, launches):
             torch.from_numpy(csr.data.astype(np.float32)),
             size=(n, n)).cuda()
         ms = time_ms(lambda: kernel(x))
+        twin_name = _twin(kname)
+        twin = _runners(pack, ks)[twin_name][0]
+        twin_ms = time_ms(lambda: twin(x))
         plain_ms = time_ms(lambda: plain(x))
         library_ms = time_ms(lambda: lib @ x)
         del lib
@@ -1566,12 +1587,74 @@ def phase_path_kernels(work: Workload, eng, spec, launches):
             "bytes": bytes_moved, "flops": flops, **extra})
         pricing[kname] = _card_priced(work, eng, mid, nrhs, pack,
                                       bytes_moved, stats)
+        pairs.append(_pair_order(work, eng, mid, nrhs, pack, stats,
+                                 {kname: ms, twin_name: twin_ms}))
         if kname == "nnzsplit_spmv_stream":
             _k11_on_hub_rows(pack, x, mid, ms, max(t_bytes, t_ops))
         del x
         torch.cuda.empty_cache()
-    emit("card_pricing", path=spec["name"], kernels=pricing)
+    emit("card_pricing", path=spec["name"], kernels=pricing,
+         stream_onehot_pairs=pairs, level_band=PAIR_LEVEL)
     return rows
+
+
+# a stream / one-hot pair measured within this share of each other is level:
+# the tuner measures both variants of an artifact, and either predicted
+# order agrees with it
+PAIR_LEVEL = 0.10
+# card pricing's bodies are throughput terms, fitted where the grid fills
+# the card many times over: a pair is held to its predicted order only on
+# a pack of at least this many tiles or chunks per SM (every main-path pack
+# at the default size; the small packs of --n 131072 print their orders
+# unchecked)
+PAIR_MIN_TILES_PER_SM = 64
+
+
+def _twin(kname: str) -> str:
+    """The kernel of the other variant on the same grid and width."""
+    head, variant = kname.rsplit("_", 1)
+    return f"{head}_{'onehot' if variant == 'stream' else 'stream'}"
+
+
+def _pair_order(work: Workload, eng, mid, nrhs, pack, stats, ms):
+    """Card pricing's order of a stream / one-hot pair on one pack (the
+    plans' prices on the pack's geometry) beside the order of the two
+    kernels' times measured on it; they must agree unless the measured
+    times are level (``PAIR_LEVEL``)."""
+    from repro_torch.core import tuner
+    from repro_torch.roofline import cost_model
+    den = cost_model.calibrate("cuda")
+    if mid not in stats:
+        stats[mid] = tuner.stats_of(work.M[mid])
+    geom = cost_model.pack_geometry(pack)
+    plan = dataclasses.replace(eng.executor(mid).op.plan, nrhs=nrhs)
+    measured, predicted, body = {}, {}, {}
+    for kname, t in ms.items():
+        variant = kname.rsplit("_", 1)[1]
+        est = cost_model.card_plan_cost(
+            stats[mid], dataclasses.replace(plan, variant=variant), den,
+            geometry=geom)
+        measured[variant] = t
+        predicted[variant] = est.predicted_s * 1e3
+        body[variant] = est.body_s * 1e3
+    m_ratio = measured["onehot"] / measured["stream"]
+    p_ratio = predicted["onehot"] / predicted["stream"]
+    level = abs(m_ratio - 1.0) <= PAIR_LEVEL
+    agree = level or (m_ratio > 1.0) == (p_ratio > 1.0)
+    from repro_torch import device as device_mod
+    held = geom.tiles >= PAIR_MIN_TILES_PER_SM * device_mod.sm_count("cuda")
+    check(agree or not held, f"{mid} r{nrhs}: card pricing orders one-hot "
+          f"/ stream {p_ratio:.3f}, the card {m_ratio:.3f}")
+
+    def order(r):
+        return "onehot slower" if r > 1.0 else "stream slower"
+
+    return {"matrix": mid, "nrhs": nrhs, "measured_ms": measured,
+            "predicted_ms": predicted, "body_ms": body,
+            "measured_ratio": m_ratio, "predicted_ratio": p_ratio,
+            "measured_order": "level" if level else order(m_ratio),
+            "predicted_order": order(p_ratio), "agree": agree,
+            "tiles": geom.tiles, "held_to_order": held}
 
 
 def _card_priced(work: Workload, eng, mid, nrhs, pack, bytes_moved,
@@ -3450,6 +3533,11 @@ def phase_train(seed: int, card):
     n_params = sum(p.numel() for p in tree.leaves(state0.params))
     param_bytes = _nbytes(tree.leaves(state0.params))
     moment_bytes = _nbytes(tree.leaves(state0.opt))
+    # what the dry-run's one-device train cell must predict: the weights,
+    # and AdamW's m and v without the step count
+    sizes = {"param_bytes": param_bytes,
+             "moment_bytes": _nbytes(tree.leaves(state0.opt.m))
+             + _nbytes(tree.leaves(state0.opt.v))}
 
     timed = TimedStep(make_train_step(model, opt_cfg, remat="full"))
     trainer = Trainer(TrainerConfig(total_steps=TRAIN_STEPS, log_every=1),
@@ -3510,6 +3598,283 @@ def phase_train(seed: int, card):
     torch.cuda.empty_cache()
     reduced = _train_reduced_card_vs_cpu(seed, card)
     emit("train_phase", reduced_card_vs_cpu=reduced,
+         seconds=round(time.perf_counter() - t_phase, 3))
+    return sizes
+
+
+# ---------------------------------------------------------------------------
+# The dist phase: the GPipe pipeline and the compressed all-reduce over a
+# ShardMesh, the meta-device dry-run and the flop count of a train step
+# ---------------------------------------------------------------------------
+
+DIST_ARCH = TRAIN_ARCH
+DIST_STAGES, DIST_MICROBATCHES = 4, 8
+DIST_MB_SEQ = 512                 # tokens of one microbatch (batch 1)
+DIST_PSUM_P = 4
+DIST_MODES = ("float32", "bfloat16", "int8")
+
+
+def _decoder_layer_fn(model):
+    """``pipeline_apply``'s layer_fn over the stacked ``layers`` tree: one
+    decoder block of ``model`` (attention + MLP, its norms) run through
+    ``transformer.call_with`` on the layer's slice of the stacked tree."""
+    from repro_torch import tree
+    from repro_torch.models.transformer import (block_attn_forward,
+                                                block_ffn_forward, call_with)
+    cfg, lp0 = model.cfg, model.layers[0]
+
+    def block(x):
+        pos = torch.arange(x.shape[1], device=x.device)
+        x, _ = block_attn_forward(cfg, lp0, x, pos, None,
+                                  cfg.sliding_window)
+        return block_ffn_forward(cfg, lp0, x, use_moe=False)[0]
+
+    def layer_fn(p, x):
+        w = {"layers.0." + ".".join(path): leaf
+             for path, leaf in tree.flatten_with_paths(p)}
+        return call_with(model, w, block, x)
+
+    return layer_fn
+
+
+@contextlib.contextmanager
+def _nccl_world_of_one():
+    import torch.distributed as dist
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _dist_pipeline(model, seed, card):
+    """qwen1.5-0.5b's decoder blocks at full width as ``layer_fn``: S = 4
+    emulated stages over M = 8 microbatches of 1 x 512 tokens, against the
+    same blocks applied in sequence (bit for bit), timed both ways; then a
+    1-rank NCCL process group (one stage) against the emulated run."""
+    from repro_torch import convert, tree
+    from repro_torch.core.distributed import ShardMesh
+    from repro_torch.obs import collectives
+    from repro_torch.train.pipeline import bubble_fraction, pipeline_apply
+    stacked = convert.lm_params_tree(model.state_dict())["layers"]
+    layer_fn = _decoder_layer_fn(model)
+    cfg = model.cfg
+    gen = torch.Generator(device=LM_DEVICE).manual_seed(seed + 27)
+    xs = torch.randn((DIST_MICROBATCHES, 1, DIST_MB_SEQ, cfg.d_model),
+                     generator=gen, device=LM_DEVICE).to(cfg.compute_dtype)
+    n_layers = tree.leaves(stacked)[0].shape[0]
+
+    def sequential():
+        out = torch.empty_like(xs)
+        for mb in range(DIST_MICROBATCHES):
+            x = xs[mb]
+            for i in range(n_layers):
+                x = layer_fn(tree.map(lambda a: a[i], stacked), x)
+            out[mb] = x
+        return out
+
+    mesh = ShardMesh(DIST_STAGES, LM_DEVICE)
+    with torch.no_grad():
+        with collectives.recording() as log:
+            got = pipeline_apply(layer_fn, stacked, xs, mesh)
+        want = sequential()
+        err = float((got.float() - want.float()).abs().max())
+        check(bool(torch.isfinite(got.float()).all()),
+              "dist_pipeline: non-finite output")
+        check(torch.equal(got, want), f"dist_pipeline: S={DIST_STAGES} "
+              f"emulated differs from the sequential blocks ({err})")
+        pipe_ms = time_ms(lambda: pipeline_apply(layer_fn, stacked, xs,
+                                                 mesh))
+        seq_ms = time_ms(sequential)
+        with _nccl_world_of_one():
+            pg = pipeline_apply(layer_fn, stacked, xs,
+                                ShardMesh(1, LM_DEVICE,
+                                          backend="process_group"))
+        check(torch.equal(pg, got), "dist_pipeline: the 1-rank NCCL "
+              "pipeline differs from the emulated one")
+    from repro_torch.roofline.op_cost import collective_stats
+    emit("dist_pipeline", model=DIST_ARCH, card=card, layers=n_layers,
+         d_model=cfg.d_model, dtype=cfg.dtype, stages=DIST_STAGES,
+         microbatches=DIST_MICROBATCHES, microbatch_shape=list(xs.shape[1:]),
+         max_abs_err=err, bit_equal=True, pipeline_ms=pipe_ms,
+         sequential_ms=seq_ms,
+         bubble_fraction=bubble_fraction(DIST_STAGES, DIST_MICROBATCHES),
+         collectives={k: v for k, v in collective_stats(log).items()
+                      if v["count"]},
+         nccl_1_rank_equal=True)
+
+
+def _dist_psum(model, seed, card):
+    """``compressed_psum`` at p = 4 emulated over trees the size of the
+    model's gradients (float32), each mode timed, its wire bytes and its
+    error against the float32 sum; then each mode on a 1-rank NCCL group
+    against the emulated p = 1 result."""
+    from repro_torch import convert, tree
+    from repro_torch.core.distributed import ShardMesh
+    from repro_torch.obs import collectives
+    from repro_torch.optim.compress import compressed_psum, wire_bytes
+    from repro_torch.roofline.op_cost import collective_stats
+    shapes = tree.map(lambda a: a.shape,
+                      convert.lm_params_tree(model.state_dict()))
+    gen = torch.Generator(device=LM_DEVICE).manual_seed(seed + 28)
+    trees = [tree.map(lambda s: torch.randn(s, generator=gen,
+                                            device=LM_DEVICE), shapes)
+             for _ in range(DIST_PSUM_P)]
+    entries = sum(t.numel() for t in tree.leaves(trees[0]))
+    mesh = ShardMesh(DIST_PSUM_P, LM_DEVICE)
+    out = {}
+    exact = None
+    for mode in DIST_MODES:
+        with collectives.recording() as log:
+            summed = compressed_psum(trees, mesh, mode)[0]
+        stats = collective_stats(log)["all-reduce"]
+        check(stats["bytes"] == wire_bytes(trees[0], mode),
+              f"dist_psum {mode}: recorded {stats['bytes']} wire bytes")
+        if mode == "float32":
+            exact = summed
+        err = max(float((a - b).abs().max()) for a, b in zip(
+            tree.leaves(summed), tree.leaves(exact)))
+        finite = all(bool(torch.isfinite(a).all())
+                     for a in tree.leaves(summed))
+        check(finite, f"dist_psum {mode}: non-finite sum")
+        del summed
+        ms = time_ms(lambda: compressed_psum(trees, mesh, mode))
+        out[mode] = {"ms": ms, "wire_bytes_per_shard": stats["bytes"],
+                     "max_abs_err_vs_float32": err}
+    # bf16: each shard's cast and the sum's rounding, half an ulp each;
+    # int8: each shard's rounding, half a quantization step
+    amax = max(float(a.abs().max()) for t in trees for a in tree.leaves(t))
+    scale = max(float(a.abs().max()) for a in tree.leaves(exact))
+    bounds = {"bfloat16": 2 ** -8 * (DIST_PSUM_P * amax + scale),
+              "int8": DIST_PSUM_P * amax / 254 * (1 + 2 ** -20)}
+    for mode, bound in bounds.items():
+        out[mode]["bound"] = bound
+        check(out[mode]["max_abs_err_vs_float32"] <= bound,
+              f"dist_psum {mode}: {out[mode]} beyond {bound}")
+    del exact
+    one = ShardMesh(1, LM_DEVICE)
+    with _nccl_world_of_one():
+        pg = ShardMesh(1, LM_DEVICE, backend="process_group")
+        for mode in DIST_MODES:
+            a = compressed_psum(trees[0], pg, mode)
+            b = compressed_psum([trees[0]], one, mode)[0]
+            check(all(torch.equal(x, y) for x, y in zip(
+                tree.leaves(a), tree.leaves(b))),
+                f"dist_psum {mode}: the 1-rank NCCL all-reduce differs "
+                "from the emulated p = 1 sum")
+            del a, b
+    emit("dist_psum", model=DIST_ARCH, card=card, shards=DIST_PSUM_P,
+         entries_per_shard=entries, modes=out, nccl_1_rank_equal=True)
+    del trees
+
+
+def _dist_dryrun(card, train_sizes):
+    """Every (arch x shape x mesh) cell on meta, and the 1 x 1 mesh's
+    qwen1.5-0.5b train cell against the weights and moments phase_train
+    measured on the card."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.roofline import cost_model
+    from repro_torch.configs.base import registry
+    from repro_torch.configs.shapes import SHAPES
+    bw = cost_model.calibrate(LM_DEVICE).hbm_bw
+    t0 = time.perf_counter()
+    records = dryrun.run(sorted(registry()), list(SHAPES),
+                         list(dryrun.MESHES), bw)
+    seconds = time.perf_counter() - t0
+    status = {k: sum(r["status"] == k for r in records)
+              for k in ("ok", "skipped", "failed")}
+    check(len(records) == 80 and status["failed"] == 0,
+          f"dist_dryrun: {len(records)} cells, {status}")
+    largest = max((r for r in records if r["status"] == "ok"),
+                  key=lambda r: r["memory"]["argument_size_in_bytes"])
+    one = dryrun.lower_cell(DIST_ARCH, "train_4k",
+                            MeshShape(("data", "model"), (1, 1)), "1x1",
+                            hbm_bw=bw)["per_device_bytes"]
+    check(one["params"] == train_sizes["param_bytes"]
+          and one["moments"] == train_sizes["moment_bytes"],
+          f"dist_dryrun: 1x1 {DIST_ARCH} train cell predicts {one}, "
+          f"phase_train measured {train_sizes}")
+    emit("dist_dryrun", card=card, cells=len(records), **status,
+         seconds=round(seconds, 3), hbm_bw=bw,
+         largest={"cell": f"{largest['arch']} x {largest['shape']} x "
+                          f"{largest['mesh']}",
+                  "gb_per_device":
+                      largest["memory"]["argument_size_in_bytes"] / 1e9},
+         one_device_train_cell={"model": DIST_ARCH, **one},
+         phase_train_measured=train_sizes)
+
+
+def _dist_flops(model, seed, card):
+    """``op_cost.analyze_fn`` of one train step (B 8 x S 512) with remat
+    none and full, against ``model_flops``' 6·N·T."""
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.data.pipeline import pipeline_for_model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.roofline.analysis import model_flops
+    from repro_torch.roofline.op_cost import analyze_fn
+    from repro_torch.train.step import init_train_state, make_train_step
+    opt_cfg = AdamWConfig(**TRAIN_OPT)
+    state = init_train_state(model, opt_cfg)
+    batch = pipeline_for_model(model.cfg, TRAIN_BATCH, TRAIN_SEQ, seed=seed,
+                               device=LM_DEVICE).batch_at(0)
+    want = model_flops(model.cfg, InputShape("train", "train", TRAIN_SEQ,
+                                             TRAIN_BATCH))
+    out = {}
+    for remat in ("none", "full"):
+        step = make_train_step(model, opt_cfg, remat=remat)
+        costs = analyze_fn(step, state, batch)
+        out[remat] = {"flops": costs.flops, "ratio": costs.flops / want,
+                      "io_bytes": costs.bytes,
+                      "top_ops": dict(sorted(costs.flops_by_op.items(),
+                                             key=lambda kv: -kv[1])[:4])}
+    check(0.9 < out["none"]["ratio"] < 1.5,
+          f"dist_flops: remat none counts {out['none']['ratio']} x 6NT")
+    check(out["full"]["flops"] > out["none"]["flops"],
+          "dist_flops: full remat counts no recompute")
+    model.remat = "none"
+    emit("dist_flops", model=DIST_ARCH, card=card, batch=TRAIN_BATCH,
+         seq=TRAIN_SEQ, model_flops_6NT=want, **out)
+
+
+def phase_dist(seed: int, card, train_sizes=None):
+    """The distributed-training and analysis modules at full width, after
+    the train phase: the GPipe pipeline over qwen1.5-0.5b's decoder blocks
+    (4 emulated stages, 8 microbatches) against the blocks in sequence,
+    ``compressed_psum`` at p = 4 over gradient-sized trees in each mode,
+    both also on a 1-rank NCCL group; the 80-cell meta dry-run; the
+    counted flops of a train step against 6·N·T."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.transformer import build_model
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(DIST_ARCH)
+    model = build_model(cfg, device=LM_DEVICE, generator=torch.Generator(
+        device=LM_DEVICE).manual_seed(seed))
+    if train_sizes is None:           # phase_dist alone
+        params = list(model.state_dict().values())
+        train_sizes = {"param_bytes": _nbytes(params),
+                       "moment_bytes": 2 * 4 * sum(p.numel()
+                                                   for p in params)}
+    parts = {}
+    for name, fn in (("dist_pipeline", lambda: _dist_pipeline(
+                          model, seed, card)),
+                     ("dist_psum", lambda: _dist_psum(model, seed, card)),
+                     ("dist_dryrun", lambda: _dist_dryrun(card,
+                                                          train_sizes)),
+                     ("dist_flops", lambda: _dist_flops(model, seed,
+                                                        card))):
+        t0 = time.perf_counter()
+        fn()
+        parts[name] = round(time.perf_counter() - t0, 3)
+        gc.collect()
+        torch.cuda.empty_cache()
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("dist_phase", parts_s=parts,
          seconds=round(time.perf_counter() - t_phase, 3))
 
 
@@ -3601,7 +3966,8 @@ def main() -> int:
     phase_colorful(int(round(math.sqrt(args.n / 8))), args.seed)
     emit("colorful_phase", seconds=round(time.perf_counter() - t0, 3))
     phase_lm(args.seed, card)
-    phase_train(args.seed, card)
+    train_sizes = phase_train(args.seed, card)
+    phase_dist(args.seed, card, train_sizes)
     emit("total", seconds=round(time.perf_counter() - t_start, 3))
 
     print(json.dumps({"kernels": rows}), flush=True)

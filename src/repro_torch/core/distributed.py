@@ -61,6 +61,7 @@ from typing import Callable, List, Optional
 import torch
 
 from repro_torch import device as device_mod
+from repro_torch.obs import collectives
 from . import paths as paths_mod
 from . import schedule as schedule_mod
 from .csrc import CSRC, bandwidth
@@ -161,6 +162,7 @@ class MeshProduct:
                             dtype=torch.float32, device=x.device)
         x_pad[:self.n] = x
         if self.mesh.rank is None:
+            _record_halo(x, h)
             # x_ext of shard t is rows [t·ns - h, (t+1)·ns) of x_pad: a view,
             # but for shard 0, whose left neighbour is the last shard
             return [torch.cat([x_pad[self.n_pad - h:], x_pad[:ns]]) if t == 0
@@ -185,6 +187,17 @@ class MeshProduct:
     # -- the emulated accumulations --------------------------------------
 
     def _combine_emulated(self, parts):
+        # what each shard would put on the wire: its partial (allreduce),
+        # its padded partial (reduce_scatter), its h halo rows (halo)
+        if self.strategy == "halo":
+            _record_halo(parts[0], self.h)
+        else:
+            row = parts[0][0].numel() * 4
+            collectives.record(
+                "all-reduce" if self.strategy == "allreduce"
+                else "reduce-scatter",
+                row * (self.n if self.strategy == "allreduce"
+                       else self.n_pad))
         if self.strategy == "halo":
             ns, h, p = self.ns, self.h, self.p
             tail = tuple(parts[0].shape[1:])
@@ -232,6 +245,7 @@ class MeshProduct:
         import torch.distributed as dist
         if to == self.mesh.rank and frm == self.mesh.rank:
             return send.clone()
+        collectives.record("send-recv", send.numel() * send.element_size())
         recv = torch.empty_like(send)
         reqs = [dist.isend(send, to), dist.irecv(recv, frm)]
         for req in reqs:
@@ -242,6 +256,7 @@ class MeshProduct:
         import torch.distributed as dist
         if self.strategy == "allreduce":
             dist.all_reduce(part)
+            collectives.record("all-reduce", part.numel() * 4)
             return part
         if self.strategy == "reduce_scatter":
             tail = tuple(part.shape[1:])
@@ -251,6 +266,7 @@ class MeshProduct:
             out = torch.empty((self.n_pad // self.p,) + tail,
                               dtype=torch.float32, device=part.device)
             dist.reduce_scatter_tensor(out, y_pad)
+            collectives.record("reduce-scatter", y_pad.numel() * 4)
             return out
         r, p, h = self.mesh.rank, self.p, self.h
         from_right = self._exchange(part[:h].contiguous(), to=(r - 1) % p,
@@ -268,7 +284,13 @@ class MeshProduct:
         out = torch.empty((y.shape[0] * self.p,) + tuple(y.shape[1:]),
                           dtype=y.dtype, device=y.device)
         dist.all_gather_into_tensor(out, y.contiguous())
+        collectives.record("all-gather", y.numel() * y.element_size())
         return out[:self.n] if self.strategy == "halo" else out
+
+
+def _record_halo(t: torch.Tensor, h: int) -> None:
+    """An emulated halo step: each shard sends h rows of ``t``'s width."""
+    collectives.record("send-recv", h * t[0].numel() * 4)
 
 
 # ---------------------------------------------------------------------------

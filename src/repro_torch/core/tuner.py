@@ -666,7 +666,7 @@ def _measured_set(ranked, measure_top_k: Optional[int]):
     """The predict-then-measure cut over price groups ranked cheapest-first
     (``(plans, estimate)`` pairs; a group is the plans of one schedule
     artifact and RHS width, such as a stream plan and its one-hot twin,
-    which card pricing prices alike): whole groups while they fit in
+    priced by its cheapest plan): whole groups while they fit in
     ``measure_top_k`` plans (default max(3, a quarter of the pool)), at
     least the first, plus each path's best-predicted group, so that no path
     is pruned unseen."""
@@ -712,9 +712,10 @@ def tune(M: CSRC,
     card).
 
     ``predict=True`` (default) prices every feasible candidate with
-    ``cost_model.rank_card_plans``, once per group of plans sharing a
-    schedule artifact and RHS width (no packing, no timing), and measures
-    only the cheapest groups (:func:`_measured_set`).  When the winner is
+    ``cost_model.rank_card_plans`` (no packing, no timing), ranks the
+    groups of plans sharing a schedule artifact and RHS width by their
+    cheapest plan, and measures only the cheapest groups
+    (:func:`_measured_set`).  When the winner is
     wider than one column, the one-column twins of its artifact are then
     timed on its schedule (they serve single requests) and join the
     argmin; variants of the winner's artifact and width whose per-column
@@ -811,16 +812,22 @@ def _tune_local(M, fp, cache, x, candidates, measure, warmup, repeats, dev,
     den = None
     if predict and pool:
         den = cost_model.calibrate(dev)
-        # one price per group of plans sharing an artifact and a width
+        # groups of plans sharing an artifact and a width (a stream plan
+        # and its one-hot twin), measured whole, ranked by their cheapest
+        # plan
         price_groups: Dict[tuple, List[ExecutionPlan]] = {}
         for p in pool:
             price_groups.setdefault(
                 (schedule_mod.plan_artifact_fields(p), p.nrhs), []).append(p)
-        group_of = {g[0].key(): g for g in price_groups.values()}
-        ranked = [(group_of[p.key()], e)
-                  for p, e in cost_model.rank_card_plans(
-                      stats, [g[0] for g in group_of.values()], den)]
-        est_by_key = {q.key(): e for g, e in ranked for q in g}
+        priced = cost_model.rank_card_plans(stats, pool, den)
+        est_by_key = {p.key(): e for p, e in priced}
+        group_of = {q.key(): g for g in price_groups.values() for q in g}
+        ranked, seen = [], set()
+        for p, e in priced:                 # cheapest plan of each group
+            g = group_of[p.key()]
+            if id(g) not in seen:
+                seen.add(id(g))
+                ranked.append((g, e))
         predictions = {k: e.predicted_s for k, e in est_by_key.items()}
         measured = _measured_set(ranked, measure_top_k)
         pruned = len(pool) - len(measured)

@@ -8,6 +8,7 @@ a weight-shared attention block).
   state = model.init_decode_state(batch, max_len)
   state, logits = model.decode_step(state, inputs_1)      # one token
   state, logits = model.prefill(inputs, max_len)
+  specs = model.decode_state_specs(batch_axes, model_size)  # sharding
 
 ``inputs`` is token ids (B, S) for input_mode='tokens', or precomputed
 frontend embeddings (B, S, D) for 'embeds' (audio/vlm stubs).
@@ -380,6 +381,39 @@ class DenseLM(_LM):
             state["first"] = mk(self.n_first_dense)
         return state
 
+    def decode_state_specs(self, batch_axes=("pod", "data"),
+                           model_size: int = 16):
+        """Logical PartitionSpecs matching init_decode_state's structure
+        (guarded against the concrete mesh by ``launch/dryrun.py``).
+
+        KV caches shard their head dim over ``model`` when divisible;
+        otherwise the *sequence* dim is sharded (flash-decoding-style
+        sequence parallelism), so GQA caches with n_kv < model do not
+        replicate across the model axis.  The MLA latent cache shards its
+        time dim over ``model``."""
+        from .sharding import P
+        cfg = self.cfg
+        if cfg.mla is not None:
+            kv = {"k": P(None, batch_axes, "model", None),
+                  "v": P(None, batch_axes, "model", None)}
+        else:
+            if cfg.n_kv % model_size == 0:
+                kv = {"k": P(None, batch_axes, None, "model", None),
+                      "v": P(None, batch_axes, None, "model", None)}
+                if self._kv_int8:
+                    kv["ks"] = P(None, batch_axes, None, "model")
+                    kv["vs"] = P(None, batch_axes, None, "model")
+            else:
+                kv = {"k": P(None, batch_axes, "model", None, None),
+                      "v": P(None, batch_axes, "model", None, None)}
+                if self._kv_int8:
+                    kv["ks"] = P(None, batch_axes, "model", None)
+                    kv["vs"] = P(None, batch_axes, "model", None)
+        state = {"scan": dict(kv), "length": P()}
+        if self.n_first_dense:
+            state["first"] = dict(kv)
+        return state
+
     @torch.inference_mode()
     def decode_step(self, state, inputs):
         """One token for every sequence of the batch: the caches in
@@ -524,6 +558,15 @@ class RWKVLM(_LM):
         return {"states": R6.RWKVLayerState(
                     *(a.new_zeros((L,) + a.shape) for a in st)),
                 "length": torch.zeros((), dtype=torch.int32)}
+
+    def decode_state_specs(self, batch_axes=("pod", "data"),
+                           model_size: int = 16):
+        from .sharding import P
+        return {"states": R6.RWKVLayerState(
+            tm_x=P(None, batch_axes, "model"),
+            cm_x=P(None, batch_axes, "model"),
+            S=P(None, batch_axes, "model", None, None)),
+            "length": P()}
 
     @torch.inference_mode()
     def decode_step(self, state, inputs):
@@ -703,6 +746,24 @@ class HybridLM(_LM):
                      if self.n_tail else None),
             "k": kv, "v": torch.zeros_like(kv),
             "length": torch.zeros((), dtype=torch.int32),
+        }
+
+    def decode_state_specs(self, batch_axes=("pod", "data"),
+                           model_size: int = 16):
+        from .sharding import P
+        kv_ax = "model" if self.cfg.n_kv % model_size == 0 else None
+        seq_ax = None if kv_ax else "model"
+        return {
+            "groups": M2.Mamba2State(
+                h=P(None, None, batch_axes, "model", None, None),
+                conv=P(None, None, batch_axes, None, "model")),
+            "tail": (M2.Mamba2State(
+                h=P(None, batch_axes, "model", None, None),
+                conv=P(None, batch_axes, None, "model"))
+                if self.n_tail else None),
+            "k": P(None, batch_axes, seq_ax, kv_ax, None),
+            "v": P(None, batch_axes, seq_ax, kv_ax, None),
+            "length": P(),
         }
 
     def _mamba_decode(self, lp, x, states, idx):

@@ -3,7 +3,8 @@
 One process-global :data:`REGISTRY` of labeled Counter/Gauge/Histogram
 families, nested wall-clock :func:`span`\\ s with a ring-buffer trace log,
 JSON + Prometheus exporters, and a ``snapshot()/diff`` API so tests and
-benchmarks assert on deltas.  See docs/DESIGN.md §9 for the metric-name
+benchmarks assert on deltas.  ``obs.collectives`` records the bytes the
+port's own collectives put on the wire.  See docs/DESIGN.md §9 for the metric-name
 table and label conventions.
 
 Quickstart::

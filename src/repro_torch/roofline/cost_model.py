@@ -33,10 +33,16 @@ path as this port runs it on the card: the kernel's own bytes (what
 padded slots the kernel streams as layout bytes, the bytes of every torch
 op around it (overlap-add, the nnz-split fix-up, each op of the
 ``segment`` and ``colorful`` products) and one launch term per kernel or
-op.  The one-hot kernels sum runs of equal rows (no mask), so a one-hot
-plan costs exactly what its stream twin costs and measurement decides
-between them.  The denominators are measured on the card once per process
-(:func:`calibrate`); on the CPU they are the data-sheet figures.
+op.  A windowed or nnz-split kernel also pays its body's work on the
+card's SMs (:data:`BODY_S`): the stream bodies (K1/K2, K5/K6, K9/K10) one
+pass over their slots per column, the one-hot bodies (K3/K4, K7/K8,
+K11/K12) the run-and-bucket form of ``csrc/window_runs.cuh`` and
+``csrc/chunk_kernels.cuh`` — per k-step the slots staged in shared
+memory, the column sort and one pass over the (window position, column)
+items.  The kernel takes the longer of its bytes and its body
+(``max``); the torch ops around it add their bytes.  The denominators are
+measured on the card once per process (:func:`calibrate`); on the CPU
+they are the data-sheet figures.
 
 Predictions rank the candidates (measure only the top of the list) and
 give the achieved fraction ``predicted_s / measured_s``, never a
@@ -91,6 +97,54 @@ def _coloring_palette_estimate(stats, provider: str) -> float:
     if provider == "race":
         return 4.0                       # two sweeps x ~one recursion level
     return 1.0 + conflict_deg
+
+
+# --- kernel bodies on the card's SMs ---------------------------------------
+# Seconds of the whole card per unit of a body's work, fitted to the kernel
+# times tools/onehot_pair_probe.py measured on the six main-path packs of
+# chip_smoke.py (NVIDIA H100 80GB HBM3 at 700 W): both variants of each
+# grid on one pack at B = 1, 8 and 11.
+BODY_S = {
+    # K1/K5: one pass, warp row runs, a shared add per run and per slot
+    "window_spmv_slot": 5.3e-12,
+    # K2/K6: the same pass per column (slots read once, runs found once)
+    "window_spmm_slot": 2.1e-12,
+    "window_spmm_slot_column": 3.0e-12,
+    # K3/K4/K7/K8 per k-step: staging and sorting its slots, the per-column
+    # counts and run bounds over the window, then one item per (window
+    # position, column) summing its row run and column bucket
+    "onehot_step_slot": 7.0e-12,
+    "onehot_step_position": 1.3e-11,
+    "onehot_step_item": 9.0e-12,
+    # K9/K10 and K11/K12 per entry of a chunk, and per entry and column
+    "chunk_stream_entry": 5.6e-12,
+    "chunk_stream_entry_column": 3.3e-12,
+    "chunk_onehot_entry": 5.9e-12,
+    "chunk_onehot_entry_column": 4.05e-12,
+}
+
+
+def body_seconds(plan: ExecutionPlan, g: "PackGeometry", nrhs: int) -> float:
+    """The card time of a windowed or nnz-split kernel's body on pack
+    geometry ``g`` (:data:`BODY_S`): every allocated slot or entry is
+    walked, padding included."""
+    b = BODY_S
+    if g.tm == 0:                      # nnz-split chunks
+        if plan.variant == "onehot":
+            return g.slots * (b["chunk_onehot_entry"]
+                              + b["chunk_onehot_entry_column"] * nrhs)
+        return g.slots * (b["chunk_stream_entry"]
+                          + b["chunk_stream_entry_column"] * nrhs)
+    if plan.variant == "onehot":
+        k_step = plan.k_step_sublanes * LANES
+        steps = -(-g.slots // k_step)
+        return steps * (b["onehot_step_slot"] * k_step
+                        + b["onehot_step_position"] * g.width
+                        + b["onehot_step_item"] * g.width * nrhs)
+    if nrhs == 1:
+        return g.slots * b["window_spmv_slot"]
+    return g.slots * (b["window_spmm_slot"]
+                      + b["window_spmm_slot_column"] * nrhs)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -372,23 +426,39 @@ def _measure_denominators(dev) -> Denominators:
 @dataclasses.dataclass(frozen=True)
 class CardCost(CostEstimate):
     """Card price of one candidate, with its parts: ``bytes`` is their
-    sum and ``predicted_s`` adds ``launches`` launch latencies."""
+    sum; ``predicted_s`` is the kernel's time — the longer of its own and
+    layout bytes and its body (``body_s``) — plus the accumulation's
+    bytes, or the flops if longer, plus ``launches`` launch latencies."""
     kernel_bytes: float = 0.0          # the kernel's own (the bound's)
     layout_bytes: float = 0.0          # padded slots / entries it streams
     accumulation_bytes: float = 0.0    # the torch ops around it
     launches: int = 0
+    body_s: float = 0.0                # the kernel body's work on the SMs
+
+    @property
+    def bound(self) -> str:
+        stream_s = (self.kernel_bytes + self.layout_bytes) / max(
+            self.bytes, 1.0) * self.memory_s
+        if self.body_s > max(stream_s, self.compute_s):
+            return "body"
+        return super().bound
 
 
 def _card_estimate(kernel: float, layout: float, acc: float, flops: float,
-                   launches: int, den: Denominators) -> CardCost:
+                   launches: int, den: Denominators,
+                   body_s: float = 0.0) -> CardCost:
     byts = float(kernel + layout + acc)
     mem_s = byts / den.hbm_bw
     cmp_s = flops / den.peak_flops
+    # the kernel streams its bytes or runs its body, whichever is longer;
+    # the torch ops around it stream theirs (no body: max(bytes, flops))
+    busy_s = max((kernel + layout) / den.hbm_bw, body_s) + acc / den.hbm_bw
     return CardCost(bytes=byts, flops=float(flops), memory_s=mem_s,
                     compute_s=cmp_s,
-                    predicted_s=max(mem_s, cmp_s) + launches * den.launch_s,
+                    predicted_s=max(busy_s, cmp_s) + launches * den.launch_s,
                     kernel_bytes=float(kernel), layout_bytes=float(layout),
-                    accumulation_bytes=float(acc), launches=int(launches))
+                    accumulation_bytes=float(acc), launches=int(launches),
+                    body_s=float(body_s))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -406,12 +476,25 @@ class PackGeometry:
 def _estimate_geometry(stats, plan: ExecutionPlan) -> PackGeometry:
     """The pack geometry of a windowed or nnz-split plan from statistics:
     the JAX package's estimates (``_windowed_geometry``,
-    ``_nnzsplit_geometry``), with the real slot count known exactly."""
+    ``_nnzsplit_geometry``), with the real slot count known exactly.  The
+    rectangular grid pads every tile to its fullest; that tile is
+    estimated as the larger of the reference's dispersion estimate and TM
+    rows of the widest row the statistics allow — a row's lower half holds
+    at most ``bandwidth`` slots, and about its mean plus four standard
+    deviations — so a skewed matrix, whose wide rows share a tile, is
+    priced at its widest tile's window."""
     if plan.path == "nnzsplit":
         nc, r_pad, slots = _nnzsplit_geometry(stats, plan)
         return PackGeometry(slots=slots, real=2 * stats.k, tiles=nc,
                             width=r_pad, tm=0)
     nt, w_pad, slots = _windowed_geometry(stats, plan)
+    if plan.path == "kernel":
+        k_step = plan.k_step_sublanes * LANES
+        lower_mean = max(stats.nnz_row_mean - 1.0, 0.0) / 2.0
+        widest = min(float(stats.bandwidth),
+                     lower_mean + 4.0 * stats.nnz_row_dev / 2.0)
+        s_tile = _round_up(max(int(np.ceil(plan.tm * widest)), 1), k_step)
+        slots = max(slots, nt * s_tile)
     return PackGeometry(slots=max(slots, stats.k), real=stats.k, tiles=nt,
                         width=w_pad, tm=plan.tm)
 
@@ -483,7 +566,8 @@ def _windowed_card(stats, plan, g: PackGeometry, nrhs: int,
            + (5 if groups > 1 else 3) * part)
     launches = 1 + 1 + (2 if groups > 1 else 1) * groups
     flops = 4.0 * g.real * nrhs + 2.0 * stats.n * nrhs
-    return _card_estimate(kernel, layout, acc, flops, launches, den)
+    return _card_estimate(kernel, layout, acc, flops, launches, den,
+                          body_seconds(plan, g, nrhs))
 
 
 def _nnzsplit_card(stats, plan, g: PackGeometry, nrhs: int,
@@ -505,7 +589,8 @@ def _nnzsplit_card(stats, plan, g: PackGeometry, nrhs: int,
         acc += n * (vb + 4.0)
         launches += 1
     flops = 2.0 * g.real * nrhs + 2.0 * n * nrhs
-    return _card_estimate(kernel, 0.0, acc, flops, launches, den)
+    return _card_estimate(kernel, 0.0, acc, flops, launches, den,
+                          body_seconds(plan, g, nrhs))
 
 
 def _segment_card(stats, nrhs: int, den: Denominators) -> CardCost:
@@ -569,7 +654,7 @@ def rank_card_plans(stats, plans: Sequence[ExecutionPlan],
                     denominators: Denominators = DATA_SHEET
                     ) -> List[Tuple[ExecutionPlan, CardCost]]:
     """Candidates cheapest-first by card-priced per-RHS-column time; ties
-    (a stream plan and its one-hot twin) keep the enumeration order."""
+    keep the enumeration order."""
     priced = [(p, card_plan_cost(stats, p, denominators)) for p in plans]
     priced.sort(key=lambda pc: pc[1].predicted_s / max(pc[0].nrhs, 1))
     return priced

@@ -1,10 +1,13 @@
 """Card pricing (``roofline/cost_model.py``): each path priced as the port
-runs it.  The one-hot kernels sum runs and build no mask, so a one-hot plan
-costs what its stream twin costs; the kernel's own bytes on a built pack
-are what ``chip_smoke.py``'s bound column counts; ``segment`` is priced as
-the torch ops it is; the colored one-hot assembly (K14) is memory-bound
-and measured by ``tune_assembly``.  The JAX package's formulas stay beside
-card pricing, unchanged (their parity tests are in
+runs it.  A one-hot plan streams its stream twin's bytes and is priced by
+its own body (the run-and-bucket pass of K3/K4, K7/K8, K11/K12), so on a
+skewed matrix it is priced above its twin, as the card runs it (ROADMAP
+C36); the rectangular padding comes from the pack's tiles when a pack
+exists, else from an estimate of the widest tile; the kernel's own bytes on
+a built pack are what ``chip_smoke.py``'s bound column counts; ``segment``
+is priced as the torch ops it is; the colored one-hot assembly (K14) is
+memory-bound and measured by ``tune_assembly``.  The JAX package's formulas
+stay beside card pricing, unchanged (their parity tests are in
 ``test_torch_assembly.py``)."""
 import dataclasses
 
@@ -46,18 +49,80 @@ PATH_PLANS = [
 @pytest.mark.parametrize("kw", PATH_PLANS,
                          ids=lambda kw: "-".join(map(str, kw.values())))
 def test_onehot_plan_is_memory_bound_at_its_stream_twins_bytes(kw, nrhs):
+    """A one-hot plan moves its stream twin's bytes with its twin's
+    launches; its kernel takes the longer of those bytes and its own body,
+    the run-and-bucket pass (C36)."""
     stats = ttuner.stats_of(to_torch_csrc(MATRICES["fem_band"]()))
     stream = tplan.ExecutionPlan(variant="stream", nrhs=nrhs, **kw)
     onehot = dataclasses.replace(stream, variant="onehot")
     a = tcost.card_plan_cost(stats, stream)
     b = tcost.card_plan_cost(stats, onehot)
-    assert b.bound == "memory" and b == a
+    for field in ("bytes", "kernel_bytes", "layout_bytes",
+                  "accumulation_bytes", "flops", "launches", "memory_s"):
+        assert getattr(b, field) == getattr(a, field), field
     assert b.bytes == (b.kernel_bytes + b.layout_bytes
                        + b.accumulation_bytes)
-    assert b.predicted_s == pytest.approx(
-        b.bytes / tcost.HBM_BW + b.launches * tcost.DATA_SHEET.launch_s)
+    g = tcost._estimate_geometry(stats, onehot)
+    for est, plan in ((a, stream), (b, onehot)):
+        assert est.body_s == tcost.body_seconds(plan, g, nrhs) > 0
+        assert est.predicted_s == pytest.approx(
+            max(max((est.kernel_bytes + est.layout_bytes) / tcost.HBM_BW,
+                    est.body_s)
+                + est.accumulation_bytes / tcost.HBM_BW, est.compute_s)
+            + est.launches * tcost.DATA_SHEET.launch_s)
+    assert b.body_s != a.body_s
     # the reference formula prices the TPU body's masks on top
     assert tcost.plan_cost(stats, onehot).flops > b.flops
+
+
+def _skew_ns(n=8192):
+    """A matrix of ``chip_smoke.py``'s ``skew_ns`` shape (half-band 512 on
+    the first 6 % of rows, 3 on the rest, numerically non-symmetric)."""
+    from repro_torch.core import csrc
+    from _smoke import chip_smoke
+    cs = chip_smoke()
+    return csrc.from_assembly(n, *cs.skew_arrays(n, cs.SKEW_WIDE,
+                                                 cs.SKEW_NARROW, 5, False))
+
+
+@pytest.mark.parametrize("nrhs", [1, 8])
+@pytest.mark.parametrize("path", ["kernel", "flat", "nnzsplit"],
+                         ids=["K3K4", "K7K8", "K11K12"])
+def test_onehot_priced_above_its_stream_twin_on_skew_ns_packs(path, nrhs):
+    """On the card the one-hot kernels run 2.9-4.8x their stream twins on
+    ``skew_ns``'s windowed packs and 1.07-1.22x on nnz-split chunks
+    (PERF.md §6); card pricing orders each pair the same way, from the
+    statistics and on the built pack."""
+    Mt = _skew_ns()
+    stats = ttuner.stats_of(Mt)
+    stream = tplan.ExecutionPlan(path=path, variant="stream", nrhs=nrhs)
+    onehot = dataclasses.replace(stream, variant="onehot")
+    geom = tcost.pack_geometry(_pack(Mt, stream))
+    for g in (None, geom):
+        a = tcost.card_plan_cost(stats, stream, geometry=g)
+        b = tcost.card_plan_cost(stats, onehot, geometry=g)
+        assert b.predicted_s > a.predicted_s and b.body_s > a.body_s
+        assert b.bytes == a.bytes
+    ranked = tcost.rank_card_plans(stats, [onehot, stream])
+    assert [p.variant for p, _ in ranked] == ["stream", "onehot"]
+
+
+def test_rectangular_padding_is_read_off_the_pack_or_the_widest_tile():
+    """The priced rectangular padding on a built pack is the pack's own;
+    without a pack the skewed matrix's fullest tile is estimated from its
+    widest rows, not from the nnz-per-row spread the reference uses."""
+    Mt = _skew_ns()
+    stats = ttuner.stats_of(Mt)
+    plan = tplan.ExecutionPlan(path="kernel", variant="onehot")
+    pack = _pack(Mt, plan)
+    built = tcost.card_plan_cost(stats, plan,
+                                 geometry=tcost.pack_geometry(pack))
+    assert built.layout_bytes == tbe.padding_bytes(pack)
+    assert tcost.pack_geometry(pack).slots == pack.col_local.numel()
+    est = tcost._estimate_geometry(stats, plan)
+    ref_slots = tcost._windowed_geometry(stats, plan)[2]
+    real = pack.col_local.numel()
+    assert ref_slots < real / 4 < est.slots <= real
 
 
 def _pack(Mt, plan):

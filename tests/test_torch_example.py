@@ -112,3 +112,108 @@ def test_train_example_defaults_to_the_card():
         pytest.skip("a card is present: the default device is usable")
     with pytest.raises(RuntimeError, match="cuda"):
         _train_example().main(["--steps", "1"])
+
+
+def _load(name):
+    path = os.path.join(os.path.dirname(__file__), "..", "examples", name)
+    spec = importlib.util.spec_from_file_location(name[:-3], path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_quickstart_runs_its_seven_steps_on_the_cpu(capsys):
+    """The checks ``examples/quickstart.py`` prints: the kernel path on
+    the Laplacian, Ax == A^T x, a coloring, CG converging, an SpMM's
+    shape, a tuned plan and a cached cg_solve."""
+    out = _load("torch_quickstart.py").main(["--device", "cpu",
+                                             "--side", "16"])
+    printed = capsys.readouterr().out
+    assert "path=kernel" in printed and "tuned plan:" in printed
+    assert out["path"] == "kernel" and out["symmetric"]
+    assert out["colors"] >= 2 and out["cg"].converged
+    assert out["spmm_shape"] == (256, 8)
+    res = out["tune"]
+    assert not res.cached and res.timings_s
+    assert out["cg_cached"].converged and out["cache_hits"] >= 1
+
+
+def test_quickstart_defaults_to_the_card():
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="cuda"):
+        _load("torch_quickstart.py").main(["--side", "8"])
+
+
+def test_fem_cg_solve_runs_the_products_and_both_solvers_on_the_cpu(capsys):
+    """The checks ``examples/fem_cg_solve.py`` prints, at a small size: the
+    products on both paths, PCG converging to x_true, BiCGSTAB on the
+    non-symmetric band, the paper's loads per flop."""
+    out = _load("torch_fem_cg_solve.py").main(["--device", "cpu", "--n",
+                                               "16", "--products", "3"])
+    printed = capsys.readouterr().out
+    assert "[spmv:segment ]" in printed and "[spmv:kernel  ]" in printed
+    assert set(out["per_product_s"]) == {"segment", "kernel"}
+    assert out["cg"].converged and out["cg_err"] < 1e-4
+    assert out["bicgstab"].converged
+    loads = out["loads_per_flop"]
+    assert loads["csrc_sym"] < loads["csrc"] < loads["csr"]
+
+
+def test_fem_cg_solve_defaults_to_the_card():
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="cuda"):
+        _load("torch_fem_cg_solve.py").main(["--n", "8", "--products", "1"])
+
+
+def test_serve_batched_greedy_tokens_equal_the_reference_example():
+    """``examples/serve_batched.py``'s traffic (6 requests, 3 slots, 12 new
+    tokens, the reduced granite, weights from PRNGKey(0)) through the
+    twin's ``serve`` on the same weights: every greedy request gets the
+    reference's tokens; the sampled ones draw a torch stream (C31) and
+    only have their lengths and vocabulary checked.  Both run in float32:
+    in bf16 the two packages' CPU ops round differently (the LM parity
+    suites hold bf16 logits to 2e-2), and a greedy argmax over a near-tie
+    then picks another token a few steps in."""
+    import numpy as np
+    from repro.serve.engine import Request as JRequest
+    from repro.serve.engine import ServingEngine as JEngine
+    from test_torch_parity_helpers import lm_pair
+    ex = _load("torch_serve_batched.py")
+    jm, params, tm = lm_pair("granite-3-2b", dtype="float32")
+    engine = JEngine(jm, params, max_slots=3, max_len=128, eos_id=1)
+    rng = np.random.default_rng(0)
+    for i in range(6):
+        engine.submit(JRequest(
+            uid=i, prompt=rng.integers(2, jm.cfg.vocab, 4 + i % 5),
+            max_new_tokens=12, temperature=0.0 if i % 2 == 0 else 0.8))
+    want = {r.uid: r.out_tokens for r in engine.run_until_drained()}
+    got, _ = ex.serve(tm, tm.cfg, 6, 12)
+    assert sorted(got) == list(range(6))
+    for uid in range(0, 6, 2):
+        assert got[uid].out_tokens == want[uid], uid
+    for uid in range(1, 6, 2):
+        toks = got[uid].out_tokens
+        assert 1 <= len(toks) <= 12
+        assert all(0 <= t < tm.cfg.vocab for t in toks)
+
+
+def test_serve_batched_runs_on_the_cpu(capsys):
+    out = _load("torch_serve_batched.py").main(["--device", "cpu",
+                                                "--requests", "4",
+                                                "--max-new", "5"])
+    assert "served 4 requests" in capsys.readouterr().out
+    assert sorted(out["done"]) == [0, 1, 2, 3]
+    assert out["tokens"] == sum(len(r.out_tokens)
+                                for r in out["done"].values())
+
+
+def test_serve_batched_defaults_to_the_card():
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="cuda"):
+        _load("torch_serve_batched.py").main(["--requests", "1"])

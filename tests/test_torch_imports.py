@@ -72,8 +72,21 @@ def test_sources_found():
                  "src/repro_torch/train/trainer.py",
                  "src/repro_torch/data/pipeline.py",
                  "src/repro_torch/checkpoint/ckpt.py",
-                 "src/repro_torch/launch/train.py"):
+                 "src/repro_torch/launch/train.py",
+                 "src/repro_torch/configs/shapes.py",
+                 "src/repro_torch/launch/mesh.py",
+                 "src/repro_torch/launch/dryrun.py",
+                 "src/repro_torch/models/sharding.py",
+                 "src/repro_torch/roofline/analysis.py",
+                 "src/repro_torch/roofline/op_cost.py",
+                 "src/repro_torch/train/pipeline.py",
+                 "src/repro_torch/obs/collectives.py"):
         assert must in names, must
+    examples = set(os.listdir(os.path.join(ROOT, "examples")))
+    for twin in ("torch_quickstart.py", "torch_fem_cg_solve.py",
+                 "torch_serve_batched.py", "torch_assemble_tune_solve.py",
+                 "torch_serve_mesh.py", "torch_train_lm.py"):
+        assert twin in examples, twin
 
 
 @pytest.mark.parametrize("path", _sources(),

@@ -191,12 +191,13 @@ def test_predict_then_measure_properties(name, nrhs_options):
         best_of_path.setdefault(p.path, (p, est))
     for path, (p, est) in best_of_path.items():
         assert p.key() in res.timings_s, path
-        # a stream plan and its one-hot twin are priced alike and measured
-        # together
+        assert res.predictions_s[p.key()] == est.predicted_s
+        # a stream plan and its one-hot twin are priced by their own bodies
+        # and measured together (one group, ranked by its cheapest plan)
         if path in ("kernel", "flat", "nnzsplit"):
             twin = dataclasses.replace(
                 p, variant="onehot" if p.variant == "stream" else "stream")
-            assert est.predicted_s == tcost.card_plan_cost(
+            assert res.predictions_s[twin.key()] == tcost.card_plan_cost(
                 stats, twin, tcost.calibrate(CPU)).predicted_s
             assert twin.key() in res.timings_s
     # the winner is the measured argmin per column
