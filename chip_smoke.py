@@ -3781,7 +3781,7 @@ def _dist_dryrun(card, train_sizes):
     bw = cost_model.calibrate(LM_DEVICE).hbm_bw
     t0 = time.perf_counter()
     records = dryrun.run(sorted(registry()), list(SHAPES),
-                         list(dryrun.MESHES), bw)
+                         list(dryrun.MESHES), bw, trace=False)
     seconds = time.perf_counter() - t0
     status = {k: sum(r["status"] == k for r in records)
               for k in ("ok", "skipped", "failed")}
@@ -3791,7 +3791,7 @@ def _dist_dryrun(card, train_sizes):
                   key=lambda r: r["memory"]["argument_size_in_bytes"])
     one = dryrun.lower_cell(DIST_ARCH, "train_4k",
                             MeshShape(("data", "model"), (1, 1)), "1x1",
-                            hbm_bw=bw)["per_device_bytes"]
+                            hbm_bw=bw, trace=False)["per_device_bytes"]
     check(one["params"] == train_sizes["param_bytes"]
           and one["moments"] == train_sizes["moment_bytes"],
           f"dist_dryrun: 1x1 {DIST_ARCH} train cell predicts {one}, "
@@ -3838,13 +3838,198 @@ def _dist_flops(model, seed, card):
          seq=TRAIN_SEQ, model_flops_6NT=want, **out)
 
 
+# traced temporaries against the card's, relative: sound traces sat within
+# 6.2e-5 of an H100's readings (its allocator's 512-byte rounding); 1e-3
+# of the smallest peak held here (5.17 GB, the prefill) is 5.2 MB, under
+# any one term a trace could miss (the module's 0.928 GB of weights, or
+# one 4,096-token hidden state of qwen3-8b, 33.6 MB)
+DIST_TRACE_TOL = 1e-3
+DIST_TRACE_PREFILL = ("qwen3-8b", 4096)     # one batch-1 prefill
+# one 16 x 16 cell under each lever of the dry-run
+DIST_TRACE_LEVERS = (
+    ("remat_none", {"remat": "none"}, "qwen3-8b", "train_4k"),
+    ("remat_dots", {"remat": "dots"}, "qwen3-8b", "train_4k"),
+    ("microbatches_1", {"microbatches": 1}, "qwen3-8b", "train_4k"),
+    ("bf16_moments", {"bf16_moments": True}, "qwen3-8b", "train_4k"),
+    ("kv_quant", {"kv_quant": True}, "qwen3-8b", "decode_32k"),
+    ("serve_tp_only", {"serve_tp_only": True}, "qwen3-8b", "prefill_32k"),
+    ("ssd_chunked", {"ssd_chunked": True}, "zamba2-7b", "prefill_32k"),
+    ("moe_hierarchical", {"moe_constrained": "hierarchical"},
+     "deepseek-v2-lite-16b", "prefill_32k"))
+
+
+def _measured_call(fn):
+    """fn() on the card under FlopCounterMode: its result, the bytes
+    allocated above what was allocated just before it (the peak, so the
+    temporaries and the outputs) and its counted flops."""
+    from torch.utils.flop_counter import FlopCounterMode
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    counter = FlopCounterMode(display=False)
+    with counter:
+        out = fn()
+    torch.cuda.synchronize()
+    return (out, torch.cuda.max_memory_allocated() - before,
+            float(counter.get_total_flops()))
+
+
+def _trace_pair(name, traced, measured_bytes, counted_flops):
+    """One traced-against-card pair: held to DIST_TRACE_TOL (temporaries)
+    and equality (flops)."""
+    rel = (traced.peak_temp_bytes - measured_bytes) / measured_bytes
+    pair = {"traced_temp_bytes": int(traced.peak_temp_bytes),
+            "measured_temp_bytes": int(measured_bytes),
+            "rel_diff": round(rel, 5), "traced_flops": traced.flops,
+            "counted_flops": counted_flops,
+            "traced_output_bytes": int(traced.output_bytes),
+            "traced_bytes_accessed": traced.bytes_accessed,
+            "traces": traced.traces, "trace_s": round(traced.seconds, 3)}
+    print(f"[dist_trace] {name}: temporaries traced "
+          f"{pair['traced_temp_bytes']} against the card's "
+          f"{pair['measured_temp_bytes']} ({rel:+.4f}); flops traced "
+          f"{traced.flops:.0f} against counted {counted_flops:.0f}",
+          flush=True)
+    check(abs(rel) <= DIST_TRACE_TOL,
+          f"dist_trace {name}: traced temporaries {pair} off by more than "
+          f"{DIST_TRACE_TOL}")
+    check(traced.flops == counted_flops,
+          f"dist_trace {name}: traced flops {traced.flops} against "
+          f"{counted_flops} counted on the card")
+    return pair
+
+
+def _dist_trace(model, seed, card):
+    """The dry-run's trace (``roofline/trace.py``, rolled up over layers
+    and scans) held against the card: (a) phase_train's step (B 8 x S
+    512) with remat none, full and dots and with bf16 moments, (b) one
+    batch-1 qwen3-8b prefill of 4,096 tokens on random bf16 weights — each
+    traced temporaries against ``max_memory_allocated`` above what was
+    allocated just before the call, traced flops against FlopCounterMode's
+    count of the real call; (c) the 16 x 16 cells traced, and one cell
+    under each lever."""
+    from repro_torch.configs.base import get_config, registry
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.data.pipeline import pipeline_for_model
+    from repro_torch.launch import dryrun
+    from repro_torch.models import mamba2, moe, rwkv6
+    from repro_torch.models.transformer import build_model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.roofline import cost_model
+    from repro_torch.train.step import init_train_state, make_train_step
+    cfg = model.cfg
+    batch = pipeline_for_model(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=seed,
+                               device=LM_DEVICE).batch_at(0)
+    # (a) the train step: one step first, so the card's workspaces exist
+    opt_cfg = AdamWConfig(**TRAIN_OPT)
+    state = init_train_state(model, opt_cfg)
+    make_train_step(model, opt_cfg, remat="none")(state, batch)
+    train = {}
+    for name, remat, mdt in (("remat_none", "none", "float32"),
+                             ("remat_full", "full", "float32"),
+                             ("remat_dots", "dots", "float32"),
+                             ("bf16_moments", "full", "bfloat16")):
+        ocfg = AdamWConfig(**TRAIN_OPT, moment_dtype=mdt)
+        st = state if mdt == "float32" else init_train_state(model, ocfg)
+        step = make_train_step(model, ocfg, remat=remat)
+        new, measured, counted = _measured_call(lambda: step(st, batch))
+        del new
+        traced = dryrun.trace_cell(
+            cfg, "train", TRAIN_BATCH, TRAIN_SEQ,
+            dryrun.Levers(remat=remat, bf16_moments=mdt == "bfloat16"), 1,
+            opt_cfg=ocfg)
+        train[name] = dict(_trace_pair(name, traced, measured, counted),
+                           remat=remat, moment_dtype=mdt)
+        del st
+        gc.collect()
+        torch.cuda.empty_cache()
+    model.remat = "none"
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (b) one prefill at full width
+    arch, seq = DIST_TRACE_PREFILL
+    cfg8 = get_config(arch)
+    big = build_model(cfg8, device=LM_DEVICE, generator=torch.Generator(
+        device=LM_DEVICE).manual_seed(seed))
+    tokens = torch.randint(0, cfg8.vocab, (1, seq), dtype=torch.int32,
+                           device=LM_DEVICE,
+                           generator=torch.Generator(
+                               device=LM_DEVICE).manual_seed(seed))
+    big.prefill(tokens[:, :16], 16)          # workspaces
+    out, measured, counted = _measured_call(lambda: big.prefill(tokens, seq))
+    del out
+    traced = dryrun.trace_cell(cfg8, "prefill", 1, seq, dryrun.Levers(), 1)
+    prefill = dict(_trace_pair(f"{arch} prefill", traced, measured, counted),
+                   model=arch, batch=1, seq=seq)
+    del big, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (c) the 16 x 16 cells, traced, and one cell under each lever
+    bw = cost_model.calibrate(LM_DEVICE).hbm_bw
+    flags = (moe.CONSTRAIN_DISPATCH, mamba2.CHUNKED_SSD, rwkv6.CHUNKED_WKV)
+    t0 = time.perf_counter()
+    recs = dryrun.run(sorted(registry()), list(SHAPES), ["16x16"], bw)
+    cells_s = time.perf_counter() - t0
+    status = {k: sum(r["status"] == k for r in recs)
+              for k in ("ok", "skipped", "failed")}
+    check(len(recs) == 40 and status == {"ok": 32, "skipped": 8,
+                                         "failed": 0},
+          f"dist_trace: 16x16 cells {status}")
+    ok = [r for r in recs if r["status"] == "ok"]
+    for r in ok:
+        check(r["cost"]["flops"] and r["cost"]["bytes accessed"]
+              and r["memory"]["temp_size_in_bytes"]
+              and r["memory"]["output_size_in_bytes"] and "trace" in r,
+              f"dist_trace: {r['arch']} x {r['shape']} lacks a traced field")
+    by_cell = {(r["arch"], r["shape"]): r for r in ok}
+
+    def brief(r):
+        return {"flops": r["cost"]["flops"],
+                "bytes_accessed": r["cost"]["bytes accessed"],
+                "temp_bytes": r["memory"]["temp_size_in_bytes"],
+                "output_bytes": r["memory"]["output_size_in_bytes"],
+                "resident_bytes": r["memory"]["argument_size_in_bytes"],
+                "bottleneck": r["roofline"]["bottleneck"],
+                "trace_s": round(r["trace"]["seconds"], 3)}
+
+    cells = {f"{r['arch']} x {r['shape']}": brief(r) for r in ok}
+    levers = {}
+    for name, kw, arch_l, shape_l in DIST_TRACE_LEVERS:
+        rec = dryrun.run([arch_l], [shape_l], ["16x16"], bw,
+                         levers=dryrun.Levers(**kw))[0]
+        check(rec["status"] == "ok", f"dist_trace: lever {name} {rec}")
+        levers[name] = {"cell": f"{arch_l} x {shape_l}", "lever": kw,
+                        "with": brief(rec),
+                        "default": brief(by_cell[(arch_l, shape_l)])}
+    check((moe.CONSTRAIN_DISPATCH, mamba2.CHUNKED_SSD,
+           rwkv6.CHUNKED_WKV) == flags,
+          "dist_trace: a lever's switch outlived its cell")
+    largest = max(ok, key=lambda r: r["memory"]["temp_size_in_bytes"])
+    emit("dist_trace", card=card, train_step={
+             "model": DIST_ARCH, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+             **train},
+         bf16_moments_peak_fall_bytes=(
+             train["remat_full"]["measured_temp_bytes"]
+             - train["bf16_moments"]["measured_temp_bytes"]),
+         prefill=prefill, tol=DIST_TRACE_TOL,
+         cells_16x16={"count": len(recs), **status,
+                      "seconds": round(cells_s, 3), "cells": cells},
+         levers=levers,
+         largest_temp={"cell": f"{largest['arch']} x {largest['shape']} x "
+                               "16x16",
+                       "temp_bytes": largest["memory"]["temp_size_in_bytes"]})
+
+
 def phase_dist(seed: int, card, train_sizes=None):
     """The distributed-training and analysis modules at full width, after
     the train phase: the GPipe pipeline over qwen1.5-0.5b's decoder blocks
     (4 emulated stages, 8 microbatches) against the blocks in sequence,
     ``compressed_psum`` at p = 4 over gradient-sized trees in each mode,
-    both also on a 1-rank NCCL group; the 80-cell meta dry-run; the
-    counted flops of a train step against 6·N·T."""
+    both also on a 1-rank NCCL group; the 80-cell meta dry-run (resident
+    bytes); the counted flops of a train step against 6·N·T; the dry-run's
+    trace held against the card and the 16 x 16 cells traced
+    (``_dist_trace``)."""
     from repro_torch.configs.base import get_config
     from repro_torch.models.transformer import build_model
     t_phase = time.perf_counter()
@@ -3865,6 +4050,8 @@ def phase_dist(seed: int, card, train_sizes=None):
                      ("dist_dryrun", lambda: _dist_dryrun(card,
                                                           train_sizes)),
                      ("dist_flops", lambda: _dist_flops(model, seed,
+                                                        card)),
+                     ("dist_trace", lambda: _dist_trace(model, seed,
                                                         card))):
         t0 = time.perf_counter()
         fn()

@@ -39,6 +39,17 @@ def element_dofs(conn: np.ndarray, ndof_per_node: int = 1) -> np.ndarray:
                 np.int32)
 
 
+def sorted_unique(keys: np.ndarray) -> np.ndarray:
+    """``np.unique(keys)`` for a 1-d integer array, by a sort and a
+    comparison of neighbours: equal arrays, but numpy 2.3's ``np.unique``
+    took 106 s on 33 M int64 keys where ``np.sort`` took 0.5 s
+    (``PERF.md`` §6)."""
+    keys = np.sort(np.asarray(keys).reshape(-1))
+    if keys.shape[0] < 2:
+        return keys
+    return keys[np.r_[True, keys[1:] != keys[:-1]]]
+
+
 def element_adjacency(conn: np.ndarray) -> List[np.ndarray]:
     """Adjacency lists of the element conflict graph: e ~ f when the
     elements share at least one node, each list sorted and without e.
@@ -46,15 +57,16 @@ def element_adjacency(conn: np.ndarray) -> List[np.ndarray]:
     the same relation for any ``ndof_per_node``.)
 
     Incidences (node, element) are sorted by node; every pair of
-    incidences of one node is an edge; one ``np.unique`` over the keys
-    ``e·ne + f`` orders and de-duplicates all lists at once."""
+    incidences of one node is an edge; one sort and de-duplication
+    (:func:`sorted_unique`) over the keys ``e·ne + f`` orders all lists
+    at once."""
     conn = np.asarray(conn)
     ne = int(conn.shape[0])
     if ne == 0:
         return []
     node = conn.reshape(-1).astype(np.int64)
     elem = np.repeat(np.arange(ne, dtype=np.int64), conn.shape[1])
-    inc = np.unique(node * ne + elem)          # sorted by (node, element)
+    inc = sorted_unique(node * ne + elem)      # sorted by (node, element)
     node, elem = inc // ne, inc % ne
     start = np.flatnonzero(np.r_[True, node[1:] != node[:-1]])
     count = np.diff(np.r_[start, node.shape[0]])
@@ -67,7 +79,7 @@ def element_adjacency(conn: np.ndarray) -> List[np.ndarray]:
     a = np.repeat(elem, size)
     b = elem[np.repeat(first, size) + offset]
     keep = a != b
-    keys = np.unique(a[keep] * ne + b[keep])
+    keys = sorted_unique(a[keep] * ne + b[keep])
     src, dst = keys // ne, keys % ne
     bounds = np.searchsorted(src, np.arange(1, ne, dtype=np.int64))
     return np.split(dst, bounds)

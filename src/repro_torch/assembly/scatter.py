@@ -56,7 +56,7 @@ from repro_torch.core.csrc import CSRC
 from repro_torch.core.paths import BUILD_COUNTS
 from repro_torch.kernels import assembly_scatter as akern
 from repro_torch.kernels.assembly_scatter import COLORED_VARIANTS  # noqa: F401
-from .conflict import color_elements, element_dofs
+from .conflict import color_elements, element_dofs, sorted_unique
 from .mesh import Mesh
 
 # version 3: the schedule carries the kernel slot packs — per-color
@@ -415,7 +415,7 @@ def build_assembly_schedule(mesh_or_conn: Union[Mesh, np.ndarray],
             jj = jj.astype(np.int64)
 
             low = ii > jj
-            keys = np.unique(ii[low] * n + jj[low])  # sorted lower slots
+            keys = sorted_unique(ii[low] * n + jj[low])  # lower slots
             k = int(keys.shape[0])
             rows = (keys // n).astype(np.int64)
             ja = (keys % n).astype(np.int32)

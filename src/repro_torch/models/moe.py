@@ -10,9 +10,11 @@ where the reference's ``segment_sum`` scatters them (ROADMAP C32).
 
 ``moe_forward`` is the global dispatch; ``moe_forward_hierarchical`` the
 two-stage form that sorts within groups of the batch (capacity per group).
-The JAX package's ``CONSTRAIN_DISPATCH`` switch between them, and its
-``"constrain"`` mode (sharding constraints), are placements across chips
-with no meaning on one device: the port calls each function by name.
+``CONSTRAIN_DISPATCH`` is the JAX package's switch between them (the
+dry-run's ``--moe-constrained`` lever): ``"hierarchical"`` routes
+``moe_forward`` through ``moe_forward_hierarchical``; ``"constrain"``
+(sharding constraints, ``sharding.constrain``: the identity on one device)
+runs the global dispatch unchanged.
 """
 from __future__ import annotations
 
@@ -23,6 +25,9 @@ import torch.nn.functional as F
 
 from .layers import Params, init_dense, init_mlp, mlp, normal
 
+# False / None / "constrain": the global dispatch; "hierarchical": the
+# two-stage one
+CONSTRAIN_DISPATCH = False
 DISPATCH_GROUPS = 16        # the data-axis size the groups align with
 
 
@@ -116,6 +121,11 @@ def moe_forward(params, x, *, num_experts: int, top_k: int,
                 capacity_factor: float = 1.25,
                 router_normalize: bool = True) -> Tuple[torch.Tensor, dict]:
     """x: (B, S, D) -> (B, S, D), aux metrics (load-balance loss etc.)."""
+    if CONSTRAIN_DISPATCH == "hierarchical":
+        return moe_forward_hierarchical(
+            params, x, num_experts=num_experts, top_k=top_k,
+            capacity_factor=capacity_factor,
+            router_normalize=router_normalize)
     b, s, d = x.shape
     t = b * s
     xf = x.reshape(t, d)

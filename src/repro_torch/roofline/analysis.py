@@ -13,13 +13,17 @@ from its collective instructions.  The port keeps the record's keys; what
 fills them (ROADMAP C40):
 
   hlo_flops         flops per device that ran: ``op_cost.analyze_fn``'s
-                    FlopCounterMode count, or, in the meta-device dry-run
-                    where nothing runs, ``model_flops / chips``;
+                    FlopCounterMode count, or, in the meta-device dry-run,
+                    the traced step's (``roofline/trace.py``) over the
+                    model axis;
   hlo_bytes         bytes per device: the call's inputs and outputs
-                    (``analyze_fn``), or the dry-run's resident bytes
-                    (weights, AdamW moments, decode state, inputs);
+                    (``analyze_fn``), or the dry-run's traced bytes
+                    accessed over the model axis;
   collective_bytes  what the port's collectives recorded
                     (``obs.collectives``), None where nothing ran.
+
+A dry-run cell that was not traced has no ``hlo_flops`` / ``hlo_bytes``;
+its terms, bottleneck and useful ratio stay None.
 
 MODEL_FLOPS (6·N·D train, 2·N·D inference; N = active params for MoE)
 gives the useful-work ratio — remat recompute shows up as counted flops
@@ -40,19 +44,24 @@ class Roofline:
     shape: str
     mesh: str
     chips: int
-    hlo_flops: float
-    hlo_bytes: float
+    hlo_flops: Optional[float]
+    hlo_bytes: Optional[float]
     collective_bytes: Optional[float]
     model_flops: float
-    compute_s: float = 0.0
-    memory_s: float = 0.0
+    compute_s: Optional[float] = 0.0
+    memory_s: Optional[float] = 0.0
     collective_s: Optional[float] = 0.0
-    bottleneck: str = ""
-    useful_ratio: float = 0.0
-    bytes_per_device: float = 0.0
+    bottleneck: Optional[str] = ""
+    useful_ratio: Optional[float] = 0.0
+    bytes_per_device: Optional[float] = 0.0
     collectives: Optional[dict] = None
 
     def finalize(self, hbm_bw: float = HBM_BW_DATA_SHEET):
+        if self.hlo_flops is None or self.hlo_bytes is None:
+            self.compute_s = self.memory_s = self.collective_s = None
+            self.bottleneck = self.useful_ratio = None
+            self.bytes_per_device = None
+            return self
         self.compute_s = self.hlo_flops / PEAK_FLOPS_BF16
         self.memory_s = self.hlo_bytes / hbm_bw
         self.collective_s = (None if self.collective_bytes is None

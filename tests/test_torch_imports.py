@@ -79,6 +79,7 @@ def test_sources_found():
                  "src/repro_torch/models/sharding.py",
                  "src/repro_torch/roofline/analysis.py",
                  "src/repro_torch/roofline/op_cost.py",
+                 "src/repro_torch/roofline/trace.py",
                  "src/repro_torch/train/pipeline.py",
                  "src/repro_torch/obs/collectives.py"):
         assert must in names, must
