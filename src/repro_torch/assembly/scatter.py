@@ -775,8 +775,6 @@ def tune_assembly(sched: AssemblySchedule, ke, cache=None,
     fractions = {key: cost_model.roofline_fraction(ests[key], t)
                  for key, t in timings.items() if t > 0}
     ws, wv = winner.split("/")
-    obs.gauge("assembly_roofline_fraction", strategy=ws,
-              variant=wv).set(fractions.get(winner, 0.0))
 
     result = AssemblyTuneResult(
         strategy=ws, variant=wv, timings_s=timings,

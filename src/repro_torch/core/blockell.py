@@ -42,6 +42,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import obs
 from .csrc import CSRC, _np, bandwidth, row_of_slot
 
 _STREAMS = ("vals_l", "vals_u", "col_local", "row_in_win", "ad")
@@ -263,25 +264,29 @@ def overlap_add(pack_, wins: torch.Tensor) -> torch.Tensor:
     inside one group are disjoint and back to back, so each group is one
     reshape plus an in-place add on a slice of y (no scatter, and a fixed
     order of additions: group 0 first).  Takes (NT, W) windows for y (n,)
-    and (NT, W, B) windows for y (n, B)."""
+    and (NT, W, B) windows for y (n, B).  The ``kernel`` and ``flat``
+    paths' accumulation step: an ``spmv.accumulate`` range
+    (``obs.trace_range``)."""
     nt, w = wins.shape[:2]
     tm = pack_.tm
     r = w // tm
     if w % tm != 0:
         raise ValueError("w_pad must be a multiple of tm for overlap-add")
     tail = tuple(wins.shape[2:])
-    y = torch.zeros((pack_.w_pad + pack_.n_pad + w,) + tail,
-                    dtype=wins.dtype, device=wins.device)
-    for g in range(r):
-        group = wins[g::r]                       # (ceil((nt-g)/r), W[, B])
-        ng = group.shape[0]
-        if ng == 0:
-            continue
-        # window b starts (padded coords) at (b+1)*tm; group g holds tiles
-        # b = g, g+r, g+2r, ... whose windows are back-to-back (stride r*tm = w)
-        start = (g + 1) * tm
-        y[start:start + ng * w] += group.reshape((ng * w,) + tail)
-    return y[pack_.w_pad:pack_.w_pad + pack_.n]
+    with obs.trace_range("spmv.accumulate"):
+        y = torch.zeros((pack_.w_pad + pack_.n_pad + w,) + tail,
+                        dtype=wins.dtype, device=wins.device)
+        for g in range(r):
+            group = wins[g::r]                   # (ceil((nt-g)/r), W[, B])
+            ng = group.shape[0]
+            if ng == 0:
+                continue
+            # window b starts (padded coords) at (b+1)*tm; group g holds
+            # tiles b = g, g+r, g+2r, ... whose windows are back-to-back
+            # (stride r*tm = w)
+            start = (g + 1) * tm
+            y[start:start + ng * w] += group.reshape((ng * w,) + tail)
+        return y[pack_.w_pad:pack_.w_pad + pack_.n]
 
 
 def overlap_add_mm(pack_, wins: torch.Tensor) -> torch.Tensor:

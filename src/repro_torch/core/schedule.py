@@ -55,6 +55,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from . import paths as paths_mod
 from .blockell import BlockEll, move_layout
 from .csrc import CSRC, _np, row_of_slot
@@ -183,11 +184,13 @@ def value_digest(M: CSRC) -> str:
     matrix values (pack value streams, per-slot al/au), so its cache key
     additionally pins the exact matrix — a same-class matrix with different
     values rebuilds instead of silently reusing another matrix's values.
+    A ``schedule.digest`` span.
     """
-    h = hashlib.sha1()
-    for a in (M.ia, M.ja, M.ad, M.al, M.au, M.iar, M.jar, M.ar):
-        h.update(np.ascontiguousarray(_np(a)).tobytes())
-    return h.hexdigest()[:16]
+    with obs.span("schedule.digest", of="value"):
+        h = hashlib.sha1()
+        for a in (M.ia, M.ja, M.ad, M.al, M.au, M.iar, M.jar, M.ar):
+            h.update(np.ascontiguousarray(_np(a)).tobytes())
+        return h.hexdigest()[:16]
 
 
 def structure_digest(M: CSRC) -> str:
@@ -197,13 +200,15 @@ def structure_digest(M: CSRC) -> str:
     time-stepping shape (re-assembled stiffness on a fixed mesh).  For
     such a pair every structural schedule artifact (partition, halo,
     coloring, pack index streams) is identical; only the value streams
-    need refreshing (:func:`refresh_schedule`).
+    need refreshing (:func:`refresh_schedule`).  A ``schedule.digest``
+    span.
     """
-    h = hashlib.sha1()
-    h.update(np.asarray([M.n, M.m], np.int64).tobytes())
-    for a in (M.ia, M.ja, M.iar, M.jar):
-        h.update(np.ascontiguousarray(_np(a)).tobytes())
-    return h.hexdigest()[:16]
+    with obs.span("schedule.digest", of="structure"):
+        h = hashlib.sha1()
+        h.update(np.asarray([M.n, M.m], np.int64).tobytes())
+        for a in (M.ia, M.ja, M.iar, M.jar):
+            h.update(np.ascontiguousarray(_np(a)).tobytes())
+        return h.hexdigest()[:16]
 
 
 def plan_artifact_fields(plan: ExecutionPlan) -> tuple:
@@ -287,7 +292,6 @@ def build_schedule(M: CSRC, plan: ExecutionPlan, p: int = 8,
     plans on rectangular matrices.
     """
     from .tuner import fingerprint as _fingerprint   # local: avoid cycle
-    from repro_torch import obs
 
     entry = paths_mod.get_path(plan.path)
     # build the path artifact first: infeasible plans raise before any
@@ -360,7 +364,6 @@ def schedule_for(M: CSRC, plan: ExecutionPlan, cache=None, p: int = 8,
         return hit
     base = cache.find_schedule_by_structure(fp, structure_digest(M), plan, p)
     if base is not None:
-        from repro_torch import obs
         obs.counter("plan_cache_lookups_total", kind="schedule",
                     outcome="refresh").inc()
         sched = refresh_schedule(base, M)

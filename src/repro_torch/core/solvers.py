@@ -20,12 +20,24 @@ Multi-RHS: ``b`` may be (n,) or (n, r).  With a block of right-hand sides
 the iterations run per column (independent alpha/beta per RHS) but share
 one batched SpMM per step — the memory-bound matrix pass is amortized
 across the block exactly as in block-Krylov methods.
+
+Tracing: each loop body is a ``solver.iteration`` range and each residual
+readback a ``solver.residual_sync`` range while ``torch.profiler`` records
+(``obs.trace_range``).  Under ``obs``'s enable flag every solve adds to
+three counters labelled by ``solver``, once at its end:
+``solver_iterations_total``, ``solver_seconds_total`` (host seconds inside
+the solve) and ``solver_sync_seconds_total`` (host seconds blocked in the
+residual readbacks).  Their ratios say per iteration how long the host
+waits on the device and how long it spends issuing work.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional, Tuple
+import time
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
+
+from repro_torch import obs
 
 
 class SolveResult(NamedTuple):
@@ -44,11 +56,40 @@ def _norm(v):
     return torch.sqrt(_dot(v, v))
 
 
+def _residual(r, bnorm, timed: bool) -> Tuple[float, float]:
+    """The largest relative residual of a column, read on the host (the
+    iteration's one sync), and when ``timed`` the host seconds spent
+    blocked in that readback."""
+    with obs.trace_range("solver.residual_sync"):
+        t = time.perf_counter() if timed else 0.0
+        res = float(torch.max(_norm(r) / bnorm))
+        return res, (time.perf_counter() - t if timed else 0.0)
+
+
+_COUNTERS: Dict[str, Tuple[obs.Counter, obs.Counter, obs.Counter]] = {}
+
+
+def _count(solver: str, iters: int, seconds: float, sync_s: float):
+    """Add one solve to the ``solver_*`` counters (children looked up
+    once per solver name)."""
+    c = _COUNTERS.get(solver)
+    if c is None:
+        c = _COUNTERS[solver] = (
+            obs.counter("solver_iterations_total", solver=solver),
+            obs.counter("solver_seconds_total", solver=solver),
+            obs.counter("solver_sync_seconds_total", solver=solver))
+    c[0].inc(iters)
+    c[1].inc(seconds)
+    c[2].inc(sync_s)
+
+
 def cg(spmv: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
        tol: float = 1e-6, maxiter: int = 1000,
        diag: Optional[torch.Tensor] = None) -> SolveResult:
     """Jacobi-preconditioned CG.  ``diag`` enables the preconditioner.
     ``b`` of shape (n, r) solves all r systems with one SpMM per step."""
+    timed = obs.STATE.enabled
+    t_start = time.perf_counter() if timed else 0.0
     x = torch.zeros_like(b) if x0 is None else x0
     inv_d = None
     if diag is not None:
@@ -66,23 +107,24 @@ def cg(spmv: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
     rz = _dot(r, z)
     bnorm = torch.clamp(_norm(b), min=1e-30)
 
-    def res_of(r):
-        return float(torch.max(_norm(r) / bnorm))
-
     k = 0
-    res = res_of(r)
+    res, sync_s = _residual(r, bnorm, timed)
     while res > tol and k < maxiter:
-        ap = spmv(p)
-        alpha = rz / torch.clamp(_dot(p, ap), min=1e-30)
-        x = x + alpha * p
-        r = r - alpha * ap
-        z = prec(r)
-        rz_new = _dot(r, z)
-        beta = rz_new / torch.clamp(rz, min=1e-30)
-        p = z + beta * p
-        rz = rz_new
-        k += 1
-        res = res_of(r)
+        with obs.trace_range("solver.iteration"):
+            ap = spmv(p)
+            alpha = rz / torch.clamp(_dot(p, ap), min=1e-30)
+            x = x + alpha * p
+            r = r - alpha * ap
+            z = prec(r)
+            rz_new = _dot(r, z)
+            beta = rz_new / torch.clamp(rz, min=1e-30)
+            p = z + beta * p
+            rz = rz_new
+            k += 1
+            res, dt = _residual(r, bnorm, timed)
+            sync_s += dt
+    if timed:
+        _count("cg", k, time.perf_counter() - t_start, sync_s)
     return SolveResult(x=x, iters=k, residual=res, converged=res <= tol)
 
 
@@ -90,6 +132,8 @@ def bicgstab(spmv: Callable, b: torch.Tensor,
              x0: Optional[torch.Tensor] = None, tol: float = 1e-6,
              maxiter: int = 1000) -> SolveResult:
     """BiCGSTAB for non-symmetric systems; per-column scalars on (n, r)."""
+    timed = obs.STATE.enabled
+    t_start = time.perf_counter() if timed else 0.0
     x = torch.zeros_like(b) if x0 is None else x0
     r = b - spmv(x)
     rh = r
@@ -106,21 +150,25 @@ def bicgstab(spmv: Callable, b: torch.Tensor,
         return a / torch.where(torch.abs(d) < 1e-30, tiny, d)
 
     k = 0
-    res = float(torch.max(_norm(r) / bnorm))
+    res, sync_s = _residual(r, bnorm, timed)
     while res > tol and k < maxiter:
-        rho_new = _dot(rh, r)
-        beta = safe_div(rho_new, rho) * safe_div(alpha, omega)
-        p = r + beta * (p - omega * v)
-        v = spmv(p)
-        alpha = safe_div(rho_new, _dot(rh, v))
-        s_vec = r - alpha * v
-        t = spmv(s_vec)
-        omega = safe_div(_dot(t, s_vec), _dot(t, t))
-        x = x + alpha * p + omega * s_vec
-        r = s_vec - omega * t
-        rho = rho_new
-        k += 1
-        res = float(torch.max(_norm(r) / bnorm))
+        with obs.trace_range("solver.iteration"):
+            rho_new = _dot(rh, r)
+            beta = safe_div(rho_new, rho) * safe_div(alpha, omega)
+            p = r + beta * (p - omega * v)
+            v = spmv(p)
+            alpha = safe_div(rho_new, _dot(rh, v))
+            s_vec = r - alpha * v
+            t = spmv(s_vec)
+            omega = safe_div(_dot(t, s_vec), _dot(t, t))
+            x = x + alpha * p + omega * s_vec
+            r = s_vec - omega * t
+            rho = rho_new
+            k += 1
+            res, dt = _residual(r, bnorm, timed)
+            sync_s += dt
+    if timed:
+        _count("bicgstab", k, time.perf_counter() - t_start, sync_s)
     return SolveResult(x=x, iters=k, residual=res, converged=res <= tol)
 
 

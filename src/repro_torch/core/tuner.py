@@ -97,14 +97,17 @@ def fingerprint(M: CSRC) -> str:
     """Stable key of the matrix *class*: (n, m, k, bandwidth) in the clear
     plus a digest of the nnz-per-row histogram and symmetry flag.  Two
     matrices of the same class (same generator, same size) share a key, so
-    solvers and the serve engine never re-tune a known class."""
-    w = nnz_per_row(M)
-    hist = np.bincount(np.minimum(w, 255).astype(np.int64), minlength=256)
-    h = hashlib.sha1()
-    h.update(hist.astype(np.int64).tobytes())
-    h.update(bytes([int(M.numerically_symmetric)]))
-    band = csrc_bandwidth(M)
-    return f"n{M.n}m{M.m}k{M.k}b{band}-{h.hexdigest()[:12]}"
+    solvers and the serve engine never re-tune a known class.  A
+    ``schedule.digest`` span."""
+    with obs.span("schedule.digest", of="fingerprint"):
+        w = nnz_per_row(M)
+        hist = np.bincount(np.minimum(w, 255).astype(np.int64),
+                           minlength=256)
+        h = hashlib.sha1()
+        h.update(hist.astype(np.int64).tobytes())
+        h.update(bytes([int(M.numerically_symmetric)]))
+        band = csrc_bandwidth(M)
+        return f"n{M.n}m{M.m}k{M.k}b{band}-{h.hexdigest()[:12]}"
 
 
 def mesh_fingerprint(fp: str, p: int) -> str:
@@ -434,7 +437,9 @@ class PlanCache:
             f = None if d is None else os.path.join(d, key + ".npz")
             if f is not None and os.path.exists(f):
                 try:
-                    sched = SpmvSchedule.load_npz(f)
+                    # the npz reload and the pack's checks (slot order)
+                    with obs.span("schedule.load", path=plan.path):
+                        sched = SpmvSchedule.load_npz(f)
                 except Exception:         # stale version, truncated or
                     sched = None          # foreign file: rebuild, not crash
                 if sched is not None and (
@@ -911,8 +916,6 @@ def _tune_local(M, fp, cache, x, candidates, measure, warmup, repeats, dev,
     est = est_by_key.get(best_plan.key())
     if est is not None and best_raw:
         winner_frac = est.predicted_s / best_raw
-        obs.gauge("tuner_winner_roofline_fraction",
-                  path=best_plan.path).set(winner_frac)
         roofline_entry = {
             "predicted_ms": round(est.predicted_s * 1e3, 6),
             "measured_ms": round(best_raw * 1e3, 6),

@@ -55,6 +55,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.blockell import _round_up, move_layout
 from repro_torch.core.csrc import CSRC, _np, row_of_slot
 from repro_torch.core.partition import (halo_diagonal, halo_geometry,
@@ -472,16 +473,18 @@ def fixup(pack: NnzSplitPack, partial: torch.Tensor,
     """y from the per-chunk partials: scatter-add them at ``fixup_idx``
     into y_pad (n + r_pad rows), then add the diagonal last, as the JAX
     package does.  On a CUDA tensor the adds of a row split across chunks
-    land in atomic order."""
+    land in atomic order.  The ``nnzsplit`` path's accumulation step: an
+    ``spmv.accumulate`` range (``obs.trace_range``)."""
     tail = tuple(partial.shape[2:])
-    y_pad = torch.zeros((pack.n + pack.r_pad,) + tail, dtype=torch.float32,
-                        device=partial.device)
-    y_pad.index_add_(0, pack.fixup_idx.to(torch.int64),
-                     partial.reshape((-1,) + tail))
-    ad = pack.ad.to(torch.float32)
-    if tail:
-        ad = ad[:, None]
-    return y_pad[:pack.n] + ad * x.to(torch.float32)
+    with obs.trace_range("spmv.accumulate"):
+        y_pad = torch.zeros((pack.n + pack.r_pad,) + tail,
+                            dtype=torch.float32, device=partial.device)
+        y_pad.index_add_(0, pack.fixup_idx.to(torch.int64),
+                         partial.reshape((-1,) + tail))
+        ad = pack.ad.to(torch.float32)
+        if tail:
+            ad = ad[:, None]
+        return y_pad[:pack.n] + ad * x.to(torch.float32)
 
 
 def nnzsplit_spmv(pack: NnzSplitPack, x: torch.Tensor,

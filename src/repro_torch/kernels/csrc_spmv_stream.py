@@ -35,7 +35,7 @@ from repro_torch.kernels import csrc_spmm as rect_mm_mod
 from repro_torch.kernels import csrc_spmv as rect_mod
 from repro_torch.kernels import csrc_spmv_flat as flat_mod
 from repro_torch.kernels import csrc_spmv_nnzsplit as nz_mod
-from repro_torch.kernels.ref import segment_sum
+from repro_torch.kernels.ref import segment_sum_unranged
 
 
 def _windowed_indices(tile, cols, rows, *, tm: int, w_pad: int, nt: int):
@@ -68,8 +68,8 @@ def _windowed_product(x_full, vl, vu, gcols, grows, seg_rows, seg_cols,
         vl, vu = vl[:, None], vu[:, None]
     c_rows = (vl * xg).to(torch.float32)
     c_cols = (vu * xi).to(torch.float32)
-    wins = segment_sum(c_rows, seg_rows, nt * w_pad)
-    wins = wins + segment_sum(c_cols, seg_cols, nt * w_pad)
+    wins = segment_sum_unranged(c_rows, seg_rows, nt * w_pad)
+    wins = wins + segment_sum_unranged(c_cols, seg_cols, nt * w_pad)
     return wins.reshape((nt, w_pad) + tuple(x_full.shape[1:]))
 
 
@@ -163,7 +163,7 @@ def nnzsplit_partials_fused(pack, x: torch.Tensor) -> torch.Tensor:
     xg = x[pack.src.reshape(-1).to(torch.int64)]
     vals = pack.vals.reshape(-1).to(torch.float32)
     c = vals[:, None] * xg if x.ndim == 2 else vals * xg
-    partial = segment_sum(c, seg, nc * r_pad)
+    partial = segment_sum_unranged(c, seg, nc * r_pad)
     return partial.reshape((nc, r_pad) + tuple(x.shape[1:]))
 
 

@@ -44,6 +44,7 @@ from typing import Optional
 import torch
 
 from repro_torch import device as device_mod
+from repro_torch import obs
 from repro_torch.core import paths as paths_mod
 from repro_torch.core import schedule as schedule_mod
 from repro_torch.core.csrc import CSRC
@@ -121,13 +122,14 @@ class SpmvOperator:
         cache holds and ``save_npz`` writes)."""
         self.M = M
         self.schedule = schedule
-        bound = schedule.to(self.device)
+        with obs.span("schedule.to_device", device=str(self.device)):
+            bound = schedule.to(self.device)
+            m_dev = M.to(self.device)
         # the path's pack ('kernel', 'flat' or 'nnzsplit'), None for
         # 'segment' and 'colorful'
         self.pack = next((p for p in (bound.pack, bound.flat_pack,
                                       bound.nnzsplit_pack)
                           if p is not None), None)
-        m_dev = M.to(self.device)
         self._fn = self._entry.make_spmv(m_dev, bound, self.plan,
                                          coloring=coloring)
         self._fn_mm = self._entry.make_spmm(m_dev, bound, self.plan,
@@ -155,12 +157,15 @@ class SpmvOperator:
                    cache=cache, schedule=schedule)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        """y = A·x; an ``spmv.product`` range while the profiler records
+        (``obs.trace_range``)."""
         if x.device != self.device:
             raise ValueError(f"operator is bound to {self.device}, x lives "
                              f"on {x.device}")
-        if x.ndim == 2:
-            return self._fn_mm(x)
-        return self._fn(x)
+        with obs.trace_range("spmv.product"):
+            if x.ndim == 2:
+                return self._fn_mm(x)
+            return self._fn(x)
 
     @property
     def flops_per_call(self) -> int:

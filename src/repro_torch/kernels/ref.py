@@ -22,13 +22,25 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.csrc import CSRC, _np, row_of_slot
 
 
 def segment_sum(data: torch.Tensor, ids: torch.Tensor,
                 num_segments: int) -> torch.Tensor:
     """Sum ``data`` rows by ``ids`` into ``num_segments`` float32 rows; an
-    id equal to ``num_segments`` is dropped (the padding sentinel)."""
+    id equal to ``num_segments`` is dropped (the padding sentinel).  The
+    ``segment`` path's accumulation step: an ``spmv.accumulate`` range
+    (``obs.trace_range``) around the zero fill and the ``index_add_``."""
+    with obs.trace_range("spmv.accumulate"):
+        return segment_sum_unranged(data, ids, num_segments)
+
+
+def segment_sum_unranged(data: torch.Tensor, ids: torch.Tensor,
+                         num_segments: int) -> torch.Tensor:
+    """``segment_sum`` outside the accumulation range: the fused plain
+    versions of the stream kernels (``csrc_spmv_stream.py``) form their
+    windows and partials with it, which is the kernels' work."""
     out = torch.zeros((num_segments + 1,) + tuple(data.shape[1:]),
                       dtype=torch.float32, device=data.device)
     out.index_add_(0, ids.long(), data.to(torch.float32))

@@ -1,4 +1,4 @@
-"""repro_torch.obs — dependency-free metrics + tracing spine.
+"""repro_torch.obs — metrics + tracing spine (stdlib, and torch's profiler).
 
 One process-global :data:`REGISTRY` of labeled Counter/Gauge/Histogram
 families, nested wall-clock :func:`span`\\ s with a ring-buffer trace log,
@@ -12,6 +12,8 @@ Quickstart::
     from repro_torch import obs
     obs.counter("requests_total", matrix_id=mid).inc()
     with obs.span("serve.tick"):
+        ...
+    with obs.trace_range("solver.iteration"):   # profiler-only, hot path
         ...
     obs.histogram("serve_execute_seconds", path="kernel").observe(dt)
     print(obs.to_prometheus())
@@ -35,7 +37,8 @@ from .metrics import (DEFAULT_BUCKETS, MAX_CARDINALITY, OVERFLOW_LABEL,
                       quantile_from_counts, set_enabled)
 from .provenance import (MISMATCH_FIELDS, env_mismatches,
                          environment_provenance, git_sha)
-from .tracing import (Span, clear_trace, set_trace_capacity, span, trace)
+from .tracing import (Span, clear_trace, set_trace_capacity, span, trace,
+                      trace_range)
 
 
 def counter(name: str, _help: str = "", **labels) -> Counter:

@@ -6,7 +6,6 @@ children are addressed by label values:
 
     obs.counter("plan_cache_lookups_total", kind="plan", outcome="hit").inc()
     obs.histogram("serve_execute_seconds", matrix_id=m, path=p).observe(dt)
-    obs.gauge("tuner_winner_roofline_fraction", path="kernel").set(0.31)
 
 Design constraints (docs/DESIGN.md §9):
 

@@ -14,13 +14,28 @@ propagates untouched.
 Spans honor the global enable flag: disabled spans skip the clock, the
 stack, and the ring entirely (one attribute read), which is what keeps
 the serving hot path inside the <2% overhead budget.
+
+While ``torch.profiler`` records, every span also opens a
+``record_function`` range of its name, so it shows in the profiler's
+trace as a ``user_annotation`` on the clock of the device activity it
+launched.  The profiler's module flag is read first: ``record_function``
+costs microseconds a call even with the profiler off.
+
+``trace_range(name)`` is the hot path's form (a CG iteration, a product,
+its accumulation): a ``record_function`` range while the profiler
+records and nothing else.  Off, it costs one flag read and writes no
+ring record, so per-iteration ranges neither slow an untraced solve nor
+push the set-up spans out of the ring.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import threading
 import time
 from typing import Dict, List, Optional
+
+from torch.autograd import profiler as _profiler
 
 from .metrics import STATE
 
@@ -28,6 +43,18 @@ DEFAULT_TRACE_CAPACITY = 4096
 
 _trace = collections.deque(maxlen=DEFAULT_TRACE_CAPACITY)
 _tls = threading.local()
+
+
+_OFF = contextlib.nullcontext()
+
+
+def trace_range(name: str):
+    """A ``record_function`` range named ``name`` while the profiler
+    records; otherwise a shared no-op context (no span, no ring record).
+    For ranges too frequent for the ring: ``with obs.trace_range(...)``."""
+    if _profiler._is_profiler_enabled:
+        return _profiler.record_function(name)
+    return _OFF
 
 
 def _stack() -> List["Span"]:
@@ -42,15 +69,19 @@ class Span:
     single instance is not supported (make a new one per block)."""
 
     __slots__ = ("name", "labels", "t0", "start", "depth", "parent",
-                 "duration_s", "_live")
+                 "duration_s", "_live", "_range")
 
     def __init__(self, name: str, labels: Dict[str, str]):
         self.name = name
         self.labels = labels
         self.duration_s = None
         self._live = False
+        self._range = None
 
     def __enter__(self) -> "Span":
+        if _profiler._is_profiler_enabled:
+            self._range = _profiler.record_function(self.name)
+            self._range.__enter__()
         if not STATE.enabled:
             return self
         st = _stack()
@@ -63,6 +94,9 @@ class Span:
         return self
 
     def __exit__(self, exc_type, exc, tb) -> bool:
+        if self._range is not None:
+            rng, self._range = self._range, None
+            rng.__exit__(exc_type, exc, tb)
         if not self._live:
             return False
         self.duration_s = time.perf_counter() - self.t0
