@@ -4,8 +4,8 @@
     python3 chip_smoke.py [--seed 0] [--n 2097152] [--cubes 64 32 32]
                           [--verbose-build]
 
-Builds the fourteen CUDA kernels from the sources in this checkout, holds
-each against its plain PyTorch version on the card, then drives four of
+Builds the fifteen CUDA kernels from the sources in this checkout, holds
+each against its plain PyTorch version on the card, then drives five of
 the port's kernel paths through its public entry points at a size a
 deployment would call real, one after the other:
 
@@ -21,6 +21,13 @@ deployment would call real, one after the other:
             and a random pattern of 20 entries per row (about 44 M), both
             infeasible for the windowed paths, on the nnz-split chunks
             (K9-K12);
+  segment   after the mesh phase, HPCG's 27-point stencil on 112^3
+            (band 12,657, too wide for every window):
+            the default plan falls to ``segment``, which on the card is
+            K15, one launch a product; served and solved by block CG, K15
+            against the gather + ``index_add_`` chain at B = 1 and 8 and on
+            a rectangular matrix, and timed beside its byte bound, that
+            chain, one ``index_add_`` and one ``torch.sparse`` product;
   assembly  FEM assembly of a 3-D elasticity system: a 64 x 32 x 32-cube
             block (``--cubes``) of Kuhn tetrahedra (393,216 elements, three
             DOFs per node, 56.6 M element contributions per assembly),
@@ -254,6 +261,45 @@ def skew_arrays(n, wide, narrow, seed, symmetric, fill=1.0, dyadic=False,
     au = al if symmetric else values()
     ad = np.full(n, 2.0 * wide, dtype=np.float32)
     return ia, ja.astype(np.int32), ad, al, au
+
+
+def stencil27_arrays(nx, ny, nz, seed=None, symmetric=True, dyadic=False):
+    """HPCG's 27-point stencil on an nx x ny x nz grid (row ix + nx·(iy +
+    ny·iz)), its bandwidth nx·ny + nx + 1: (ia, ja, ad, al, au) with
+    row-major lower slots, columns ascending.  HPCG's values (26 on the
+    diagonal, -1 elsewhere) without a ``seed``; else random off-diagonal
+    values (multiples of 1/4 in [-2, 2] when ``dyadic``), ``au`` drawn
+    apart unless ``symmetric``."""
+    n = nx * ny * nz
+    ix = np.tile(np.arange(nx, dtype=np.int64), ny * nz)
+    iy = np.tile(np.repeat(np.arange(ny, dtype=np.int64), nx), nz)
+    iz = np.repeat(np.arange(nz, dtype=np.int64), nx * ny)
+    offs = sorted((dx + nx * dy + nx * ny * dz, dx, dy, dz)
+                  for dz in (-1, 0, 1) for dy in (-1, 0, 1)
+                  for dx in (-1, 0, 1) if dx + nx * dy + nx * ny * dz < 0)
+    cols = np.full((n, len(offs)), -1, dtype=np.int64)
+    for c, (d, dx, dy, dz) in enumerate(offs):
+        ok = ((ix + dx >= 0) & (ix + dx < nx) & (iy + dy >= 0)
+              & (iy + dy < ny) & (iz + dz >= 0) & (iz + dz < nz))
+        cols[ok, c] = np.nonzero(ok)[0] + d
+    valid = cols >= 0
+    ia = np.zeros(n + 1, dtype=np.int32)
+    np.cumsum(valid.sum(axis=1), out=ia[1:])
+    ja = cols[valid].astype(np.int32)
+    k = ja.shape[0]
+    ad = np.full(n, 26.0, dtype=np.float32)
+    if seed is None:
+        al = np.full(k, -1.0, dtype=np.float32)
+        return ia, ja, ad, al, al
+    rng = np.random.default_rng(seed)
+
+    def values():
+        if dyadic:
+            return (rng.integers(-8, 9, size=k) / 4.0).astype(np.float32)
+        return rng.standard_normal(k, dtype=np.float32)
+
+    al = values()
+    return ia, ja, ad, al, al if symmetric else values()
 
 
 def _lower_from_pairs(n, hi, lo):
@@ -1688,6 +1734,178 @@ def _card_priced(work: Workload, eng, mid, nrhs, pack, bytes_moved,
             "predicted_ms": priced.predicted_s * 1e3,
             "on_pack_bytes": on_pack.bytes,
             "on_pack_ratio_to_bound_bytes": on_pack.bytes / bytes_moved}
+
+
+# the segment phase's matrix: the benchmark's cube (HPCG's stencil on 112^3,
+# n = 1,404,928), whose band of 12,657 no window takes
+SEGMENT_GRID = (112, 112, 112)
+
+
+def phase_segment(grid, seed: int):
+    """The ``segment`` path's main run on a matrix too wide for every
+    window: HPCG's stencil on ``grid``, registered with the default plan
+    (which must be ``segment``, one ``segment_route_total{route="kernel"}``),
+    served (a wave of 8 requests, one SpMM, then one SpMV) and solved by
+    8-column block CG, every product one K15 launch; answers against the
+    float64 scipy product.  Then K15 against its plain version (the gather
+    + ``index_add_`` chain on the card) on the grid at B = 1 and 8, on dyadic
+    values (equal) and general ones (within ``TOL`` of the row's absolute
+    sum), and on a small rectangular matrix at B = 3; and K15 timed beside
+    its byte bound, the plain chain, one ``index_add_`` of the (k, B)
+    transpose term and one ``torch.sparse`` CSR product.  Returns (K15's
+    launches on the main run, the kernels-table row at B = 8 with the B = 1
+    times beside it)."""
+    from repro_torch import obs
+    from repro_torch.core import csrc, solvers
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import csrc_segment as seg
+    from repro_torch.kernels import ref
+    from repro_torch.serve import SpmvServingEngine
+
+    name = seg.K15.name
+    nx, ny, nz = grid
+    n = nx * ny * nz
+    rng = np.random.default_rng(seed + 500)
+    t0 = time.perf_counter()
+    arr = stencil27_arrays(nx, ny, nz)
+    M = csrc.from_assembly(n, *arr)
+    csr = scipy_csr(n, *arr)
+    abs_csr = abs(csr)
+    construct_s = time.perf_counter() - t0
+    sample = np.sort(rng.choice(n, size=min(n, 4096), replace=False))
+
+    def check_rows(X, Y, what):
+        want = csr[sample] @ X.astype(np.float64)
+        bound = 2 * TOL * (abs_csr[sample] @ np.abs(X).astype(np.float64))
+        err = np.abs(Y[sample] - want)
+        check(bool(np.isfinite(Y).all()) and bool((err <= bound).all()),
+              f"segment {what}: differs from the float64 reference "
+              f"(max {err.max()})")
+        return float(err.max())
+
+    routed = obs.counter("segment_route_total", route="kernel")
+    routed0 = routed.value
+    _build.reset_launch_counts()          # the main run starts here
+    eng = SpmvServingEngine()
+    plan = eng.register("cube", M)
+    check(plan.path == "segment", f"cube: plan is {plan.key()}, expected "
+          "the segment path")
+    check(routed.value == routed0 + 1, "the cube's operator did not route "
+          "its segment product to K15")
+    serve = {}
+    for per in (8, 1):
+        sent = {eng.submit("cube", x): x for x in
+                (rng.standard_normal(n, dtype=np.float32)
+                 for _ in range(per))}
+        before = _build.launch_counts()[name]
+        out = eng.run_until_drained()
+        check(_build.launch_counts()[name] == before + 1,
+              f"a tick of {per} requests did not launch K15 once")
+        X = np.stack(list(sent.values()), axis=1)
+        Y = np.stack([np.asarray(out[u]) for u in sent], axis=1)
+        serve[f"B{per}_err_vs_float64"] = check_rows(X, Y, f"serve B={per}")
+    b = rng.standard_normal((n, 8), dtype=np.float32)
+    before = _build.launch_counts()[name]
+    t0 = time.perf_counter()
+    res, op = solvers.cg_solve(M, torch.from_numpy(b), cache=eng.cache,
+                               tol=1e-6)
+    torch.cuda.synchronize()
+    cg_s = time.perf_counter() - t0
+    check(res.converged and op.plan.path == "segment",
+          f"segment cg: converged {res.converged}, plan {op.plan.key()}")
+    x = res.x.cpu().numpy().astype(np.float64)
+    cg_true = float(np.max(np.linalg.norm(b - csr @ x, axis=0)
+                           / np.linalg.norm(b, axis=0)))
+    check(cg_true <= 1e-5, f"segment cg true residual {cg_true}")
+    cg_launches = _build.launch_counts()[name] - before
+    check(cg_launches >= res.iters, f"segment cg: {cg_launches} K15 "
+          f"launches for {res.iters} iterations")
+    launches = _build.launch_counts()[name]     # ... and ends here
+    cg = {"nrhs": 8, "iters": res.iters, "launches": cg_launches,
+          "true_residual": cg_true, "seconds": round(cg_s, 4)}
+    del eng, op, res
+    gc.collect()
+
+    # K15 against its plain version: dyadic (equal) and general values
+    errs = {}
+    for kind, dyadic in (("dyadic", True), ("general", False)):
+        arr_v = stencil27_arrays(nx, ny, nz, seed + 501, symmetric=False,
+                                 dyadic=dyadic)
+        Mv = csrc.from_assembly(n, *arr_v).to("cuda")
+        Ma = csrc_abs(n, *arr_v).to("cuda")
+        for width in (1, 8):
+            shape = (n,) if width == 1 else (n, width)
+            xv = (dyadic_vector(rng, shape) if dyadic
+                  else rng.standard_normal(shape, dtype=np.float32))
+            errs[f"{kind}/B{width}"] = _compare(
+                f"segment/{kind}/B{width}",
+                lambda v: seg.SegmentKernel(Mv)(v),
+                lambda v: seg.segment_product_plain(Mv, v),
+                torch.from_numpy(xv).cuda(), exact=dyadic,
+                abs_plain=lambda v: seg.segment_product_plain(Ma, v))
+        del Mv, Ma, arr_v
+    Mr = csrc.rectangular_fem(400, 37, 9, seed=seed)
+    Mr = dataclasses.replace(Mr, **{f: torch.round(getattr(Mr, f) * 4) / 4
+                                    for f in ("ad", "al", "au", "ar")})
+    Mr = Mr.to("cuda")
+    errs["rectangular/B3"] = _compare(
+        "segment/rectangular/B3", lambda v: seg.SegmentKernel(Mr)(v),
+        lambda v: seg.segment_product_plain(Mr, v),
+        torch.from_numpy(dyadic_vector(rng, (Mr.m, 3))).cuda(), exact=True)
+
+    # times at the grid's shape, HPCG's values
+    Md = M.to("cuda")
+    k15 = seg.SegmentKernel(Md)
+    row_idx32 = ref.row_index(Md)      # as the operator held it before K15
+    row_idx = row_idx32.long()
+    ja64 = Md.ja.long()
+    lib = torch.sparse_csr_tensor(
+        torch.from_numpy(csr.indptr.astype(np.int64)),
+        torch.from_numpy(csr.indices.astype(np.int64)),
+        torch.from_numpy(csr.data.astype(np.float32)), size=(n, n)).cuda()
+    times = {}
+    for width in (1, 8):
+        shape = (n,) if width == 1 else (n, width)
+        xt = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                              ).cuda()
+        contrib = (Md.al[:, None] * xt.reshape(n, -1)[row_idx]).reshape(
+            (-1,) + shape[1:])
+        out = torch.zeros(shape, dtype=torch.float32, device="cuda")
+        # ia, ja, ad and al (HPCG's values are symmetric: au is not read),
+        # X read and Y written once
+        nbytes = (4 * (n + 1) + 4 * Md.k + 4 * (n + Md.k)
+                  + 2 * 4 * n * width)
+        flops = (2 * M.nnz - n) * width
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / FP32_FLOPS * 1e3
+        times[width] = {
+            "ms": time_ms(lambda: k15(xt)),
+            "plain_ms": time_ms(lambda: seg.segment_product_plain(
+                Md, xt, row_idx=row_idx32)),
+            "index_add_ms": time_ms(lambda: out.index_add_(0, ja64,
+                                                          contrib)),
+            "sparse_csr_ms": time_ms(lambda: lib @ xt),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+        del contrib, out, xt
+    del lib, Md, k15, row_idx, row_idx32, ja64
+    torch.cuda.empty_cache()
+    emit("segment", grid=list(grid), n=n, k=M.k, plan=plan.key(),
+         construct_s=round(construct_s, 3), launches=launches,
+         cg=cg, serve=serve, max_abs_err=errs, times=times)
+    k = _build.KERNELS[name]
+    b8 = times[8]
+    row = {"name": name, "route": "cuda", "source": k.repo_source,
+           "replaces": k.replaces, "launches": launches,
+           "max_abs_err": errs["general/B8"], "ms": b8["ms"],
+           "plain_ms": b8["plain_ms"], "bound_ms": b8["bound_ms"],
+           "bound_by": b8["bound_by"], "library_ms": b8["index_add_ms"],
+           "sparse_csr_ms": b8["sparse_csr_ms"],
+           "shape": {"matrix": f"hpcg27_{nx}x{ny}x{nz}", "nrhs": 8,
+                     "n": n, "k": M.k},
+           "bytes": b8["bytes"], "flops": b8["flops"], "B1": times[1]}
+    return launches, row
 
 
 # the matrix of each path that this slice's tune phase tunes
@@ -4089,7 +4307,8 @@ def main() -> int:
     from repro_torch import device as device_mod
     from repro_torch.kernels import _build
     from repro_torch.kernels import (assembly_scatter,  # noqa: F401
-                                     csrc_spmm, csrc_spmv,  # (register)
+                                     csrc_segment,  # (register)
+                                     csrc_spmm, csrc_spmv,
                                      csrc_spmv_flat, csrc_spmv_nnzsplit)
 
     torch.manual_seed(args.seed)
@@ -4133,6 +4352,13 @@ def main() -> int:
             gc.collect()
             torch.cuda.empty_cache()
     check(bool(mesh_launches), "the mesh phase did not run")
+    t0 = time.perf_counter()
+    launches[csrc_segment.K15.name], row = phase_segment(SEGMENT_GRID,
+                                                         args.seed)
+    rows.append(row)
+    emit("segment_phase", seconds=round(time.perf_counter() - t0, 3))
+    gc.collect()
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     counts, sched, ke0 = phase_assembly(args.seed, args.cubes)
     for name in ("assembly_colored_stream", "assembly_colored_onehot"):

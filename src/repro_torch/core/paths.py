@@ -338,7 +338,9 @@ def _windowed_candidates(path, stats, space):
 
 
 # ---------------------------------------------------------------------------
-# 'segment' — index_add_ torch path (any matrix, incl. the rectangular tail)
+# 'segment' — any matrix, incl. the rectangular tail: K15 on the card
+# (kernels/csrc_segment.py), the gather + index_add_ chain (kernels/ref.py)
+# on the CPU
 # ---------------------------------------------------------------------------
 
 def _segment_candidates(stats, space):
@@ -347,14 +349,33 @@ def _segment_candidates(stats, space):
                           accumulation=space.accumulation)]
 
 
+def _segment_make(M, plain):
+    """K15 for a matrix on the card (it launches or raises: a matrix it
+    cannot read is refused when the operator binds), the reference chain
+    for one on the CPU."""
+    from repro_torch.kernels import csrc_segment, ref
+    if M.device.type == "cuda":
+        return csrc_segment.SegmentKernel(M)
+    return functools.partial(plain, M, row_idx=ref.row_index(M))
+
+
 def _segment_make_spmv(M, schedule, plan, *, coloring=None):
+    from repro_torch import obs
     from repro_torch.kernels import ref
-    return functools.partial(ref.csrc_spmv, M, row_idx=ref.row_index(M))
+    fn = _segment_make(M, ref.csrc_spmv)
+    # SpmvOperator._bind builds this executor and its SpMM twin together:
+    # the route is counted here, once per bound operator
+    obs.counter("segment_route_total",
+                "segment operators bound, by route: K15 on the card "
+                "(kernel) or the plain chain on the CPU (plain)",
+                route="kernel" if M.device.type == "cuda" else "plain"
+                ).inc_always()
+    return fn
 
 
 def _segment_make_spmm(M, schedule, plan, *, coloring=None):
     from repro_torch.kernels import ref
-    return functools.partial(ref.csrc_spmm, M, row_idx=ref.row_index(M))
+    return _segment_make(M, ref.csrc_spmm)
 
 
 register_path(KernelPath(

@@ -21,8 +21,9 @@ produce the SpMV and SpMM callables — this module contains no per-path
     chosen only by an explicit plan);
   * 'colorful' the paper's §3.2 row coloring, one ``index_add_`` pair per
     color (chosen only by an explicit plan);
-  * 'segment'  ``index_add_`` torch path (any matrix, incl. the
-    rectangular tail).
+  * 'segment'  any matrix, incl. the rectangular tail: the one-pass CUDA
+    kernel K15 on the card (``kernels/csrc_segment.py``), the gather +
+    ``index_add_`` chain of ``kernels/ref.py`` on the CPU.
 
 Every path accepts ``x`` of shape (m,) — classic SpMV — or (m, r) —
 multi-RHS SpMM (batched serving, block-Krylov solvers).  Construction

@@ -1,4 +1,4 @@
-"""The CUDA kernels (K1-K14) against their plain versions, on the card.
+"""The CUDA kernels (K1-K15) against their plain versions, on the card.
 
 These tests need an NVIDIA GPU and ``nvcc`` and skip elsewhere (the check
 is made inside the fixture, never at import).  Run them on the card with
@@ -18,6 +18,7 @@ from repro_torch.core import blockell, csrc
 from repro_torch.core.plan import ExecutionPlan
 from repro_torch.kernels import _build
 from repro_torch.kernels import assembly_scatter as ak
+from repro_torch.kernels import csrc_segment as seg
 from repro_torch.kernels import csrc_spmm as mm
 from repro_torch.kernels import csrc_spmv as mv
 from repro_torch.kernels import csrc_spmv_flat as fl
@@ -831,3 +832,145 @@ def test_mesh_executor_on_the_card_matches_segment(card, path, acc):
         assert torch.equal(ex(X), want), variant
         if path != "segment":
             assert _build.launch_counts()[name] == before + 4
+
+
+# ---------------------------------------------------------------------------
+# K15: the segment path's product in one pass
+# ---------------------------------------------------------------------------
+
+SEGMENT_CASES = ("stencil", "wide_stencil", "random_empty_rows",
+                 "rectangular")
+SEGMENT_WIDTHS = (1, 2, 3, 8, 11, 64, 136)
+
+
+def _segment_matrix(case, dyadic, symmetric, seed=0):
+    """A host CSRC for K15: HPCG's stencil on 9 x 9 x 6 (window 91) and on
+    64 x 64 x 3 (band 4,161: no window takes it), a random structurally
+    symmetric pattern with 40 empty rows (among them the first and the
+    last), and a band matrix with a rectangular tail."""
+    if case in ("stencil", "wide_stencil"):
+        grid = (9, 9, 6) if case == "stencil" else (64, 64, 3)
+        arr = chip_smoke().stencil27_arrays(*grid, seed=seed,
+                                          symmetric=symmetric, dyadic=dyadic)
+        return csrc.from_assembly(int(np.prod(grid)), *arr)
+    if case == "random_empty_rows":
+        n = 3000
+        empty = np.concatenate(([0, n - 1], np.random.default_rng(seed)
+                                .choice(np.arange(1, n - 1), 38,
+                                        replace=False)))
+        ia, ja, ad, al, au = chip_smoke().random_arrays(
+            n, seed, per_row=12, dyadic=dyadic, empty_rows=empty)
+        M = csrc.from_assembly(n, ia, ja, ad, al, al if symmetric else au)
+        assert (np.diff(ia)[empty] == 0).all()
+        return M
+    import dataclasses
+    M = csrc.rectangular_fem(700, 53, 11, seed=seed)    # al = au
+    if not symmetric:
+        M = dataclasses.replace(M, au=torch.roll(M.al, 1),
+                                numerically_symmetric=False)
+    if dyadic:
+        M = dataclasses.replace(M, **{f: torch.round(getattr(M, f) * 4) / 4
+                                      for f in ("ad", "al", "au", "ar")})
+    return M
+
+
+def _abs_matrix(M):
+    import dataclasses
+    return dataclasses.replace(M, **{f: getattr(M, f).abs()
+                                     for f in ("ad", "al", "au", "ar")})
+
+
+@pytest.mark.parametrize("case", SEGMENT_CASES)
+@pytest.mark.parametrize("symmetric", [False, True])
+def test_k15_equals_plain_chain_on_dyadic_data(card, case, symmetric):
+    """K15 against the gather + index_add_ chain on the card, equal on
+    dyadic values at every width (vec 4 / 2 / 1, one to 32 lanes, a lane
+    looping over column groups at B = 136); one launch a product."""
+    M = _segment_matrix(case, dyadic=True, symmetric=symmetric).to(card)
+    assert M.numerically_symmetric == symmetric
+    rng = np.random.default_rng(51)
+    for width in SEGMENT_WIDTHS:
+        x = _dyadic_x(rng, M.m, width, card)
+        before = _build.launch_counts()["csrc_segment_spmm"]
+        got = seg.SegmentKernel(M)(x)
+        assert _build.launch_counts()["csrc_segment_spmm"] == before + 1
+        want = seg.segment_product_plain(M, x)
+        assert got.shape == want.shape == (M.n,) + tuple(x.shape[1:])
+        np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy(),
+                                      err_msg=f"{case} B={width}")
+
+
+@pytest.mark.parametrize("case", SEGMENT_CASES)
+def test_k15_within_rowsum_tolerance_on_general_values(card, case):
+    """Standard-normal values: K15 adds in another order than the chain
+    (its reductions land in atomic order, so does index_add_), so each row
+    is held within 1e-5 of its absolute sum (|A|·|x|), as K1-K8 are."""
+    M = _segment_matrix(case, dyadic=False, symmetric=False).to(card)
+    Ma = _abs_matrix(M)
+    rng = np.random.default_rng(52)
+    for width in (1, 3, 8, 11):
+        x = torch.from_numpy(rng.standard_normal(
+            (M.m, width), dtype=np.float32)).to(card)
+        if width == 1:
+            x = x[:, 0].contiguous()
+        got = seg.SegmentKernel(M)(x)
+        want = seg.segment_product_plain(M, x)
+        bound = 1e-5 * seg.segment_product_plain(Ma, x.abs()) + 1e-30
+        assert bool(((got - want).abs() <= bound).all()), (case, width)
+
+
+def test_k15_misaligned_operand_takes_scalar_lanes(card):
+    """X starting 4 bytes past a 16-byte boundary: the lane mapping falls to
+    one column a lane (8 lanes at B = 8), and the answer is unchanged; one
+    bound kernel keeps a mapping per width and alignment, so the aligned
+    call after the misaligned one (and the reverse) launches its own."""
+    M = _segment_matrix("wide_stencil", dyadic=True, symmetric=False)
+    M = M.to(card)
+    rng = np.random.default_rng(53)
+    x = _dyadic_x(rng, M.m, 8, card)
+    buf = torch.empty(x.numel() + 1, device=card)[1:]
+    shifted = buf.view(M.m, 8)
+    shifted.copy_(x)
+    assert seg.lane_mapping(8, shifted.data_ptr()) == (1, 8)
+    assert seg.lane_mapping(8, x.data_ptr()) == (4, 2)
+    k = seg.SegmentKernel(M)
+    want = seg.segment_product_plain(M, x)
+    for operand in (shifted, x, shifted, x):
+        assert torch.equal(k(operand), want)
+    assert sorted(k._mappings.values()) == [(1, 8), (4, 2)]
+
+
+def test_segment_operator_on_the_card_routes_to_k15(card):
+    """A matrix whose window exceeds w_cap: ``path="auto"`` falls to
+    ``segment``, whose executors on the card are K15 (one
+    ``segment_route_total{route="kernel"}`` a bound operator, one launch a
+    product, SpMV and SpMM), equal to the plain chain; a float64 matrix on
+    the card is refused when the operator binds (K15 launches or raises:
+    nothing falls back to the chain there), counted on no route, and
+    launches nothing."""
+    import dataclasses
+    from repro_torch import obs
+    M = _segment_matrix("wide_stencil", dyadic=True, symmetric=True)
+    routed = obs.counter("segment_route_total", route="kernel")
+    plain = obs.counter("segment_route_total", route="plain")
+    r0, p0 = routed.value, plain.value
+    op = SpmvOperator(M)
+    assert op.plan.path == "segment" and op.device.type == "cuda"
+    assert routed.value == r0 + 1 and plain.value == p0
+    assert isinstance(op._fn, seg.SegmentKernel)
+    assert isinstance(op._fn_mm, seg.SegmentKernel)
+    rng = np.random.default_rng(54)
+    X = _dyadic_x(rng, M.n, 8, card)
+    before = _build.launch_counts()["csrc_segment_spmm"]
+    Y, y = op(X), op(X[:, 0])
+    assert _build.launch_counts()["csrc_segment_spmm"] == before + 2
+    Md = M.to(card)
+    assert torch.equal(Y, seg.segment_product_plain(Md, X))
+    assert torch.equal(y, seg.segment_product_plain(Md, X[:, 0]))
+    M64 = dataclasses.replace(M, **{f: getattr(M, f).double()
+                                    for f in ("ad", "al", "au", "ar")})
+    before = _build.launch_counts()["csrc_segment_spmm"]
+    with pytest.raises(TypeError, match="float32 values"):
+        SpmvOperator(M64, path="segment")
+    assert routed.value == r0 + 1 and plain.value == p0
+    assert _build.launch_counts()["csrc_segment_spmm"] == before

@@ -42,6 +42,7 @@ def test_sources_found():
                  "src/repro_torch/kernels/csrc_spmv_stream.py",
                  "src/repro_torch/kernels/csrc_spmv_flat.py",
                  "src/repro_torch/kernels/csrc_spmv_nnzsplit.py",
+                 "src/repro_torch/kernels/csrc_segment.py",
                  "src/repro_torch/kernels/assembly_scatter.py",
                  "src/repro_torch/assembly/__init__.py",
                  "src/repro_torch/assembly/mesh.py",
@@ -131,7 +132,7 @@ def test_import_in_a_fresh_process_pulls_in_nothing_foreign():
     info = json.loads(out.stdout.strip().splitlines()[-1])
     assert not (set(info["roots"]) & (FORBIDDEN | {"triton"})), info["roots"]
     assert "torch" in info["roots"]
-    assert len(info["kernels"]) == 14 and not any(info["bound"])
+    assert len(info["kernels"]) == 15 and not any(info["bound"])
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():

@@ -19,6 +19,7 @@ from repro.kernels import csrc_spmv as jmv
 from repro.kernels import csrc_spmv_stream as jstream
 from repro_torch.core import blockell as tbe
 from repro_torch.kernels import _build
+from repro_torch.kernels import csrc_segment  # noqa: F401  (registers K15)
 from repro_torch.kernels import csrc_spmm as tmm
 from repro_torch.kernels import csrc_spmv as tmv
 from repro_torch.kernels import csrc_spmv_stream as tstream
@@ -286,9 +287,10 @@ def test_wrappers_validate_and_never_launch_on_cpu():
 
 def test_kernel_sources_and_notes_exist():
     """Every registered kernel has its CUDA source in the package and names
-    the TPU body it replaces as ``file:line``; every header beside the
-    sources is in ``_build._HEADERS``, so an edit to it rebuilds every
-    kernel."""
+    the TPU body it replaces as ``file:line``, or, where its note says it
+    replaces no TPU body (K15, added on the card alone), the JAX package's
+    plain function it stands in for; every header beside the sources is in
+    ``_build._HEADERS``, so an edit to it rebuilds every kernel."""
     import os
     import re
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -300,11 +302,17 @@ def test_kernel_sources_and_notes_exist():
         assert os.path.isfile(k.source), k.source
         src = open(k.source).read()
         assert f'extern "C" int {k.name}(' in src
-        assert "Replaces the TPU body" in src and "Bound on this card" in src
+        assert "Bound on this card" in src
         path, line = k.replaces.rsplit(":", 1)
         body = open(os.path.join(root, path)).read().split("\n")[int(line) - 1]
-        # the def line of a Pallas body: _kernel*, _colored_kernel_*
-        assert re.match(r"def _\w*kernel\w*\(", body), (k.name, body)
+        if "Replaces no TPU body" in src:
+            # the JAX package's plain segment product (hopper-kernels §3)
+            assert path == "src/repro/kernels/ref.py", (k.name, path)
+            assert re.match(r"def csrc_spmm\(", body), (k.name, body)
+        else:
+            assert "Replaces the TPU body" in src
+            # the def line of a Pallas body: _kernel*, _colored_kernel_*
+            assert re.match(r"def _\w*kernel\w*\(", body), (k.name, body)
         assert k.repo_source == os.path.relpath(k.source, root)
 
 
