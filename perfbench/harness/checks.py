@@ -11,7 +11,11 @@ Two numbers are compared, each with the limit in ``limits/<cell>.json``:
   x_err        over the sets kept (drawn from the seed): the largest
                ||x - x_ref|| / ||x_ref|| of a column, x_ref from the
                reference's own float64 Jacobi-PCG on the same right-hand
-               sides and the same number of iterations.
+               sides and the same number of iterations (through the
+               reference's CSR form, ``Csrc64.csr``).
+
+Every cell's limits file holds both numbers; one that lacks either is
+refused (``KeyError``), so no cell is judged on one number alone.
 
 A non-finite answer reads as infinity, so it fails any limit.
 """
@@ -45,7 +49,7 @@ def x_err(ref: csrc_ref.Csrc64, b: torch.Tensor, x: torch.Tensor,
           iters: int) -> float:
     if not bool(torch.isfinite(x).all()):
         return math.inf
-    x_ref = csrc_ref.pcg(ref, b, iters)
+    x_ref = csrc_ref.pcg(ref.csr(), b, iters)
     diff = torch.linalg.vector_norm(x.to(torch.float64) - x_ref, dim=0)
     norm = torch.linalg.vector_norm(x_ref, dim=0).clamp_min(1e-300)
     return _finite_max(diff / norm)

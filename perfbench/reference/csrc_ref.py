@@ -2,9 +2,13 @@
 CSRC arrays, in plain PyTorch.
 
 Nothing here comes from the program: the arrays are the generator's
-(``perfbench/generators``), and every product is two ``index_add_`` over
-the strict lower triangle plus the diagonal, in float64, in blocks of
-slots so that the gathered terms fit beside the answers.
+(``perfbench/generators``).  A product the comparison judges is two
+``index_add_`` over the strict lower triangle plus the diagonal, in
+float64, in blocks of slots so that the gathered terms fit beside the
+answers.  The reference's own solves apply the same matrix many
+times, so they go through ``Csr64``: the lower slots, their transposes and
+the diagonal sorted into one float64 CSR tensor, applied by PyTorch's
+sparse product.
 
 ``Csrc64`` is what the program is judged against.  ``LowPrecision`` is the
 comparison's control: the same product with the values and the operand
@@ -14,6 +18,7 @@ the comparison.
 """
 from __future__ import annotations
 
+import warnings
 from typing import Dict
 
 import torch
@@ -38,6 +43,13 @@ class Csrc64:
         self.ad = self._values(arrays["ad"], dev)
         self.al = self._values(arrays["al"], dev)
         self.au = self._values(arrays["au"], dev)
+        self._csr = None
+
+    def csr(self) -> "Csr64":
+        """The same matrix as one CSR tensor, built at the first call."""
+        if self._csr is None:
+            self._csr = Csr64(self)
+        return self._csr
 
     def _values(self, a, dev):
         return torch.as_tensor(a).to(dev, self.dtype)
@@ -85,9 +97,38 @@ class LowPrecision(Csrc64):
         return self.apply(x).to(x.dtype)
 
 
-def pcg(A: Csrc64, b: torch.Tensor, iters: int) -> torch.Tensor:
+class Csr64:
+    """The matrix of a ``Csrc64`` as one float64 CSR tensor on its device:
+    every lower slot (row, col, al), its transpose (col, row, au) and the
+    diagonal, sorted by row and column."""
+
+    def __init__(self, A: Csrc64):
+        n = A.n
+        diag = torch.arange(n, device=A.ad.device)
+        rows = torch.cat([A.row, A.col, diag])
+        cols = torch.cat([A.col, A.row, diag])
+        vals = torch.cat([A.al, A.au, A.ad])
+        order = torch.argsort(rows * n + cols)
+        crow = torch.zeros(n + 1, dtype=torch.int64, device=diag.device)
+        crow[1:] = torch.cumsum(torch.bincount(rows, minlength=n), 0)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)   # "beta state"
+            self.matrix = torch.sparse_csr_tensor(
+                crow, cols[order], vals[order], (n, n))
+        self.ad = A.ad
+
+    def apply(self, x: torch.Tensor) -> torch.Tensor:
+        """A·x in float64 for x of shape (n,) or (n, B)."""
+        x = x.to(torch.float64)
+        if x.ndim == 1:
+            return (self.matrix @ x[:, None])[:, 0]
+        return self.matrix @ x
+
+
+def pcg(A, b: torch.Tensor, iters: int) -> torch.Tensor:
     """``iters`` steps of Jacobi-preconditioned CG from x0 = 0, each column
-    of a block with its own step lengths, in float64."""
+    of a block with its own step lengths, in float64; ``A`` a ``Csrc64``
+    or a ``Csr64``."""
     b = b.to(torch.float64)
     inv_d = 1.0 / A.ad
     if b.ndim == 2:

@@ -11,7 +11,8 @@ from perfbench.harness import runner
 
 SEED = 2**31 + 5
 CELLS = ["hpcg-pencil56.cg8", "hpcg-cube112.cg8", "hpcg-pencil56.cg1",
-         "hpcg-cube112.cg1"]
+         "hpcg-cube112.cg1", "hpcg-pencil56.cg32"]
+BLOCK_CELLS = ["hpcg-pencil56.cg8", "hpcg-cube112.cg8", "hpcg-pencil56.cg32"]
 
 
 def _run(cell, **kw):
@@ -65,7 +66,7 @@ def test_state_returned_unchanged(tiny_cell, monkeypatch, name):
     _fails(_run(tiny_cell(name)), "x_err")
 
 
-@pytest.mark.parametrize("name", ["hpcg-pencil56.cg8", "hpcg-cube112.cg8"])
+@pytest.mark.parametrize("name", BLOCK_CELLS)
 def test_half_the_batch_left_out(tiny_cell, monkeypatch, name):
     """The product computes half of the block's columns and gives the
     rest their mean."""

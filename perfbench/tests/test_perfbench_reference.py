@@ -88,3 +88,43 @@ def test_control_is_one_precision_down():
     err = ((low.double() - exact.apply(x)).abs()
            / exact.abs_apply(x)).max().item()
     assert 1e-4 < err < 1e-2
+
+
+
+def _skewed(grid=(5, 4, 6)):
+    """HPCG's pattern with al and au apart, so that a transpose put in the
+    wrong place shows."""
+    a = dict(_arrays(grid))
+    g = np.random.default_rng(4)
+    a["al"] = g.standard_normal(a["al"].shape).astype(np.float32)
+    a["au"] = g.standard_normal(a["au"].shape).astype(np.float32)
+    return a
+
+
+@pytest.mark.parametrize("make", [_arrays, _skewed])
+@pytest.mark.parametrize("shape", [(), (3,)])
+def test_csr_against_dense(make, shape):
+    """The solves' CSR form is the same matrix: every lower slot, its
+    transpose and the diagonal."""
+    a = make()
+    A = _dense(a)
+    x = torch.randn((a["n"],) + shape, dtype=torch.float64,
+                    generator=torch.Generator().manual_seed(5))
+    csr = csrc_ref.Csrc64(a, "cpu").csr()
+    np.testing.assert_allclose(csr.apply(x).numpy(), A @ x.numpy(),
+                               rtol=1e-13, atol=1e-12)
+    np.testing.assert_array_equal(csr.matrix.to_dense().numpy(), A)
+
+
+@pytest.mark.parametrize("nrhs", [1, 4])
+def test_pcg_through_csr_as_through_csrc(nrhs):
+    """The comparison's solve through the CSR form reads as through the
+    two index_add_ products."""
+    a = _arrays()
+    ref = csrc_ref.Csrc64(a, "cpu")
+    b = torch.randn((a["n"], nrhs) if nrhs > 1 else (a["n"],),
+                    dtype=torch.float64,
+                    generator=torch.Generator().manual_seed(7))
+    np.testing.assert_allclose(csrc_ref.pcg(ref.csr(), b, 9).numpy(),
+                               csrc_ref.pcg(ref, b, 9).numpy(),
+                               rtol=1e-12, atol=1e-13)

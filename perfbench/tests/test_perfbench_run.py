@@ -19,7 +19,8 @@ def _run(cell, trace=False, seconds=0.3, **kw):
                       device="cpu", **kw)
 
 
-@pytest.mark.parametrize("name", ["hpcg-pencil56.cg8", "hpcg-cube112.cg1"])
+@pytest.mark.parametrize("name", ["hpcg-pencil56.cg8", "hpcg-cube112.cg1",
+                                  "hpcg-pencil56.cg32"])
 def test_result_schema(tiny_cell, name):
     cell = tiny_cell(name)
     code, res = _run(cell)
