@@ -28,6 +28,9 @@ deployment would call real, one after the other:
             against the gather + ``index_add_`` chain at B = 1 and 8 and on
             a rectangular matrix, and timed beside its byte bound, that
             chain, one ``index_add_`` and one ``torch.sparse`` product;
+            then K15's split form (two launches) on Graph500's SCALE 21
+            Kronecker graph, against that chain at B = 1 and 8 and timed,
+            split and unsplit, beside its byte bound;
   assembly  FEM assembly of a 3-D elasticity system: a 64 x 32 x 32-cube
             block (``--cubes``) of Kuhn tetrahedra (393,216 elements, three
             DOFs per node, 56.6 M element contributions per assembly),
@@ -162,6 +165,8 @@ SKEW_WIDE_FRAC = 0.06
 PL_ATTACH = 16        # edges each vertex draws: mean degree 32
 PL_ALPHA = 0.5        # attachment weight (rank)^-alpha: degrees ~ k^-3
 RAND_PER_ROW = 20     # stored entries per row of the random pattern
+KRON_INITIATOR = (0.57, 0.19, 0.19)   # Graph500's A, B, C (D = 0.05)
+KRON_SCALE = 21       # the segment phase's split case: 2^21 vertices
 TOL = 1e-5            # of the row's absolute sum: float32 sums in any order
 # build counters a same-structure value refresh must leave untouched
 STRUCTURAL_BUILDS = ("pack", "flat_pack", "nnzsplit_pack", "coloring",
@@ -300,6 +305,54 @@ def stencil27_arrays(nx, ny, nz, seed=None, symmetric=True, dyadic=False):
 
     al = values()
     return ia, ja, ad, al, al if symmetric else values()
+
+
+def kronecker_pattern(scale, seed, device="cpu"):
+    """Graph500's Kronecker graph: 2^scale vertices, 16·2^scale edges, each
+    placed by one draw a level among the initiator's quadrants (row bit
+    set in C and D, column bit in B and D), labels permuted; self-loops
+    dropped and repeats merged.  Returns (n, ia, ja) of its strict lower
+    triangle, numpy, columns ascending.  Drawn and sorted by torch on
+    ``device``."""
+    n, m = 1 << scale, 16 << scale
+    a, b, c = KRON_INITIATOR
+    gen = torch.Generator(device=device).manual_seed(seed)
+    u = torch.zeros(m, dtype=torch.int64, device=device)
+    v = torch.zeros_like(u)
+    for level in range(scale):
+        r = torch.rand(m, generator=gen, device=device)
+        low = r >= a + b
+        u += low.long() << level
+        v += ((r >= a + b + c) | ((r >= a) & ~low)).long() << level
+    perm = torch.randperm(n, generator=gen, device=device)
+    u, v = perm[u], perm[v]
+    keep = u != v
+    key = torch.unique(torch.maximum(u, v)[keep] * n
+                       + torch.minimum(u, v)[keep])
+    del u, v, keep
+    ia = np.zeros(n + 1, dtype=np.int32)
+    np.cumsum(torch.bincount(key // n, minlength=n).cpu().numpy(),
+              out=ia[1:])
+    return n, ia, (key % n).to(torch.int32).cpu().numpy()
+
+
+def kronecker_arrays(scale, seed, symmetric=True, dyadic=False,
+                     device="cpu"):
+    """(n, (ia, ja, ad, al, au)) of :func:`kronecker_pattern`'s graph:
+    values as ``band_arrays`` draws them, ``au`` apart unless
+    ``symmetric``, a diagonal of 4."""
+    n, ia, ja = kronecker_pattern(scale, seed, device)
+    rng = np.random.default_rng(seed)
+    k = ja.shape[0]
+
+    def values():
+        if dyadic:
+            return (rng.integers(-8, 9, size=k) / 4.0).astype(np.float32)
+        return rng.standard_normal(k, dtype=np.float32)
+
+    al = values()
+    au = al if symmetric else values()
+    return n, (ia, ja, np.full(n, 4.0, dtype=np.float32), al, au)
 
 
 def _lower_from_pairs(n, hi, lo):
@@ -1750,11 +1803,14 @@ def phase_segment(grid, seed: int):
     float64 scipy product.  Then K15 against its plain version (the gather
     + ``index_add_`` chain on the card) on the grid at B = 1 and 8, on dyadic
     values (equal) and general ones (within ``TOL`` of the row's absolute
-    sum), and on a small rectangular matrix at B = 3; and K15 timed beside
-    its byte bound, the plain chain, one ``index_add_`` of the (k, B)
-    transpose term and one ``torch.sparse`` CSR product.  Returns (K15's
+    sum), on a small rectangular matrix at B = 3, and in its split form
+    (two launches a product) on Graph500's Kronecker graph at
+    ``KRON_SCALE`` at B = 1 and 8, al != au; and K15 timed beside its byte
+    bound, the plain chain, one ``index_add_`` of the (k, B) transpose term
+    and one ``torch.sparse`` CSR product, and on the Kronecker graph split
+    and unsplit beside its bound and the plain chain.  Returns (K15's
     launches on the main run, the kernels-table row at B = 8 with the B = 1
-    times beside it)."""
+    times and the split form's beside it)."""
     from repro_torch import obs
     from repro_torch.core import csrc, solvers
     from repro_torch.kernels import _build
@@ -1852,6 +1908,33 @@ def phase_segment(grid, seed: int):
         "segment/rectangular/B3", lambda v: seg.SegmentKernel(Mr)(v),
         lambda v: seg.segment_product_plain(Mr, v),
         torch.from_numpy(dyadic_vector(rng, (Mr.m, 3))).cuda(), exact=True)
+    del Mr
+
+    # the split form: Graph500's Kronecker graph, al != au, whose rows past
+    # HEAVY_SLOTS K15 cuts into chunks (two launches a product)
+    for kind, dyadic in (("dyadic", True), ("general", False)):
+        nk, arr_v = kronecker_arrays(KRON_SCALE, seed + 502, symmetric=False,
+                                     dyadic=dyadic, device="cuda")
+        Mv = csrc.from_assembly(nk, *arr_v).to("cuda")
+        Ma = csrc_abs(nk, *arr_v).to("cuda")
+        kv = seg.SegmentKernel(Mv)
+        check(kv.split.rows > 0, f"kron{KRON_SCALE}: no row was split")
+        for width in (1, 8):
+            shape = (nk,) if width == 1 else (nk, width)
+            xv = (dyadic_vector(rng, shape) if dyadic
+                  else rng.standard_normal(shape, dtype=np.float32))
+            before = _build.launch_counts()[name]
+            errs[f"kron/{kind}/B{width}"] = _compare(
+                f"segment/kron{KRON_SCALE}/{kind}/B{width}", kv,
+                lambda v: seg.segment_product_plain(Mv, v),
+                torch.from_numpy(xv).cuda(), exact=dyadic,
+                abs_plain=lambda v: seg.segment_product_plain(Ma, v))
+            check(_build.launch_counts()[name] == before + 2,
+                  f"kron{KRON_SCALE} B={width}: a split product is not two "
+                  "launches")
+        del Mv, Ma, kv, arr_v
+        gc.collect()
+        torch.cuda.empty_cache()
 
     # times at the grid's shape, HPCG's values
     Md = M.to("cuda")
@@ -1891,9 +1974,46 @@ def phase_segment(grid, seed: int):
         del contrib, out, xt
     del lib, Md, k15, row_idx, row_idx32, ja64
     torch.cuda.empty_cache()
+
+    # ... and on the Kronecker graph with al = au, as the kron21-lgc cell
+    # holds it: split, and unsplit (no row heavy) at B = 8
+    nk, arr_k = kronecker_arrays(KRON_SCALE, seed + 503, device="cuda")
+    Mk = csrc.from_assembly(nk, *arr_k).to("cuda")
+    del arr_k
+    kk = seg.SegmentKernel(Mk)
+    unsplit = seg.SegmentKernel(Mk, seg.split_rows(Mk.ia, heavy=2**31 - 1))
+    row_idx32 = ref.row_index(Mk)
+    split_times = {}
+    for width in (1, 8):
+        shape = (nk,) if width == 1 else (nk, width)
+        xt = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                              ).cuda()
+        nbytes = (4 * (nk + 1) + 4 * Mk.k + 4 * (nk + Mk.k)
+                  + 2 * 4 * nk * width)
+        flops = (2 * Mk.nnz - nk) * width
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / FP32_FLOPS * 1e3
+        split_times[width] = {
+            "ms": time_ms(lambda: kk(xt)),
+            "plain_ms": time_ms(lambda: seg.segment_product_plain(
+                Mk, xt, row_idx=row_idx32)),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+        if width == 8:
+            split_times[width]["unsplit_ms"] = time_ms(lambda: unsplit(xt))
+        del xt
+    split = {"matrix": f"kron{KRON_SCALE}", "n": nk, "k": Mk.k,
+             "longest_lower_row": int((Mk.ia[1:] - Mk.ia[:-1]).max()),
+             "rows": kk.split.rows, "slots": kk.split.slots,
+             "chunks": int(kk.split.chunks.shape[0]), "heavy": kk.split.heavy}
+    del Mk, kk, unsplit, row_idx32
+    gc.collect()
+    torch.cuda.empty_cache()
     emit("segment", grid=list(grid), n=n, k=M.k, plan=plan.key(),
          construct_s=round(construct_s, 3), launches=launches,
-         cg=cg, serve=serve, max_abs_err=errs, times=times)
+         cg=cg, serve=serve, max_abs_err=errs, times=times,
+         split=split, split_times=split_times)
     k = _build.KERNELS[name]
     b8 = times[8]
     row = {"name": name, "route": "cuda", "source": k.repo_source,
@@ -1904,7 +2024,10 @@ def phase_segment(grid, seed: int):
            "sparse_csr_ms": b8["sparse_csr_ms"],
            "shape": {"matrix": f"hpcg27_{nx}x{ny}x{nz}", "nrhs": 8,
                      "n": n, "k": M.k},
-           "bytes": b8["bytes"], "flops": b8["flops"], "B1": times[1]}
+           "bytes": b8["bytes"], "flops": b8["flops"], "B1": times[1],
+           "split": dict(split_times[8], shape=dict(split, nrhs=8),
+                         max_abs_err=errs["kron/general/B8"],
+                         B1=split_times[1])}
     return launches, row
 
 

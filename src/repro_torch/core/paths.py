@@ -288,18 +288,6 @@ def _windowed_feasible(plan, *, n, m, bandwidth) -> bool:
     return plan.index_dtype != "int16" or w + 1 <= 32767
 
 
-def _no_artifact(M, plan, coloring=None) -> dict:
-    return {}
-
-
-def _save_nothing(sched):
-    return {}, {}
-
-
-def _load_nothing(meta, z) -> dict:
-    return {}
-
-
 def _empty_fields(plan) -> tuple:
     return ()
 
@@ -349,33 +337,64 @@ def _segment_candidates(stats, space):
                           accumulation=space.accumulation)]
 
 
-def _segment_make(M, plain):
-    """K15 for a matrix on the card (it launches or raises: a matrix it
-    cannot read is refused when the operator binds), the reference chain
-    for one on the CPU."""
+def _segment_build(M, plan, coloring=None) -> dict:
+    from repro_torch.kernels import csrc_segment
+    return {"segment_split": csrc_segment.split_rows(M.ia)}
+
+
+def _segment_save(sched):
+    sp = sched.segment_split
+    meta = {"segment_split": {"heavy": sp.heavy, "rows": sp.rows,
+                              "slots": sp.slots}}
+    return meta, {"segment_chunks": sp.chunks.detach().cpu().numpy()}
+
+
+def _segment_load(meta, z) -> dict:
+    from repro_torch.kernels import csrc_segment
+    sm = meta.get("segment_split")
+    if sm is None:      # written by the JAX package, whose path has none
+        return {}
+    return {"segment_split": csrc_segment.SegmentSplit(
+        chunks=torch.from_numpy(np.ascontiguousarray(z["segment_chunks"],
+                                                     dtype=np.int32)),
+        heavy=int(sm["heavy"]), rows=int(sm["rows"]),
+        slots=int(sm["slots"]))}
+
+
+def _segment_make(M, schedule, plain):
+    """K15 for a matrix on the card, with the schedule's split (it
+    launches or raises: a matrix it cannot read is refused when the
+    operator binds), the reference chain for one on the CPU."""
     from repro_torch.kernels import csrc_segment, ref
     if M.device.type == "cuda":
-        return csrc_segment.SegmentKernel(M)
+        return csrc_segment.SegmentKernel(M, schedule.segment_split)
     return functools.partial(plain, M, row_idx=ref.row_index(M))
 
 
 def _segment_make_spmv(M, schedule, plan, *, coloring=None):
     from repro_torch import obs
     from repro_torch.kernels import ref
-    fn = _segment_make(M, ref.csrc_spmv)
+    fn = _segment_make(M, schedule, ref.csrc_spmv)
     # SpmvOperator._bind builds this executor and its SpMM twin together:
-    # the route is counted here, once per bound operator
+    # the route and the split are counted here, once per bound operator
     obs.counter("segment_route_total",
                 "segment operators bound, by route: K15 on the card "
                 "(kernel) or the plain chain on the CPU (plain)",
                 route="kernel" if M.device.type == "cuda" else "plain"
                 ).inc_always()
+    if M.device.type == "cuda":
+        obs.counter("segment_split_rows_total",
+                    "rows K15 splits into chunks, over bound segment "
+                    "operators").inc_always(fn.split.rows)
+        obs.counter("segment_split_chunks_total",
+                    "chunks of split rows, over bound segment operators"
+                    ).inc_always(fn.split.chunks.shape[0])
     return fn
 
 
 def _segment_make_spmm(M, schedule, plan, *, coloring=None):
     from repro_torch.kernels import ref
-    return _segment_make(M, ref.csrc_spmm)
+    return _segment_make(M, schedule, ref.csrc_spmm)
 
 
 register_path(KernelPath(
@@ -383,9 +402,9 @@ register_path(KernelPath(
     feasible=_always_feasible,
     candidates=_segment_candidates,
     artifact_fields=_empty_fields,
-    build_artifact=_no_artifact,
-    save_artifact=_save_nothing,
-    load_artifact=_load_nothing,
+    build_artifact=_segment_build,
+    save_artifact=_segment_save,
+    load_artifact=_segment_load,
     make_spmv=_segment_make_spmv,
     make_spmm=_segment_make_spmm,
 ))

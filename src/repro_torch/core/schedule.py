@@ -18,6 +18,8 @@ path re-ran the greedy colorer).  ``SpmvSchedule`` gives them one home:
   nnzsplit_pack    the chunked combined stream for the ``nnzsplit`` path
   coloring         the conflict-free row classes for the ``colorful`` path,
                    with the per-color slot batches
+  segment_split    the ``segment`` path's chunks of rows too long for one
+                   lane group (K15's second launch)
 
 A schedule is built **once** per (matrix fingerprint, value digest, plan,
 partition width) and stored next to the plan in the tuner's
@@ -26,8 +28,9 @@ known matrix performs zero pack/partition/coloring work
 (``BUILD_COUNTS`` is the probe tests assert that with).
 
 Path-specific artifact contents (the block-ELL pack, the flat-grid pack,
-the nnz-split pack, the coloring batches) are built and serialized by the
-path's :class:`~repro_torch.core.paths.KernelPath` registry entry — this module owns
+the nnz-split pack, the coloring batches, the segment path's split of
+heavy rows) are built and serialized by the path's
+:class:`~repro_torch.core.paths.KernelPath` registry entry — this module owns
 the common pieces (partition, halo, fingerprinting, cache plumbing) and
 delegates the rest, so a newly registered path is schedule-cached with
 zero edits here.
@@ -101,17 +104,21 @@ class SpmvSchedule:
     color_slot_ptr: Optional[np.ndarray] = None
     flat_pack: Optional[object] = None       # 'flat' path (FlatBlockEll)
     nnzsplit_pack: Optional[object] = None   # 'nnzsplit' path (NnzSplitPack)
+    # 'segment' path (csrc_segment.SegmentSplit): K15's chunks of heavy rows
+    segment_split: Optional[object] = None
     # exact-structure digest (ia/ja/iar/jar only — values excluded): the
     # key of the value-refresh fast path (refresh_schedule)
     structure_digest: str = ""
 
     def to(self, device) -> "SpmvSchedule":
         """The same schedule with its tensor-bearing artifacts (the
-        block-ELL, flat or nnz-split pack) on ``device``; partition, halo
-        and the coloring batches stay host numpy (the colorful executor
-        uploads its batches once, when it is bound)."""
+        block-ELL, flat or nnz-split pack, the segment split) on
+        ``device``; partition, halo and the coloring batches stay host
+        numpy (the colorful executor uploads its batches once, when it is
+        bound)."""
         moved = {f: getattr(self, f).to(device)
-                 for f in ("pack", "flat_pack", "nnzsplit_pack")
+                 for f in ("pack", "flat_pack", "nnzsplit_pack",
+                           "segment_split")
                  if getattr(self, f) is not None}
         if all(moved[f] is getattr(self, f) for f in moved):
             return self

@@ -35,6 +35,30 @@
 // (ROADMAP C7).  With numerically symmetric values al serves both halves
 // and au is not read.
 //
+// Heavy rows.  A lane group walks its row's slots one after another, and a
+// block ends with its longest row.  On a power-law graph (a Graph500
+// Kronecker graph at SCALE 21: lower rows of 15 slots on average, the
+// longest 68,862) one row would keep its block running long after every
+// other row is done.  So the wrapper marks, once per bound matrix, each
+// row with more than `heavy` lower slots and cuts its slots into chunks of
+// consecutive slots (a table of (row, first slot, end slot) on the card).
+// Where the table is empty — every row short, as on HPCG's stencil — the
+// product is segment_kernel alone, as above.  Otherwise it is two launches:
+// segment_light_kernel, the same row-owned walk in which a heavy row keeps
+// only its diagonal and tail, then segment_chunk_kernel, in which a lane
+// group takes one chunk, sums its gather terms in registers and joins them
+// to Y[row] by the same reduction, its transpose terms going to Y[ja[p]]
+// as before.  Every lane group then walks at most max(heavy, chunk) slots.
+// A chunk's lane loads kBatch slots' X rows before it reduces any of them,
+// since its gathers are random where a stencil's coalesce.  On that graph at
+// B = 8 (heavy 16, chunk 256: 205,107 rows, 90 % of the slots, in 265,233
+// chunks; H100 80GB HBM3, 700 W) the product takes 1.11 ms against 24.4 ms
+// unsplit; kBatch 8 against 1 gains 11 %, 16 loses to register pressure,
+// and thresholds of 4-64 and chunks of 128-512 lie within 10 % of it
+// (tools/k15_split_probe.py).  Its chunks' random 32-byte gathers and
+// reductions, about 2.8 GB of sectors, set that time more than the slots'
+// count does.
+//
 // Bound on this card: bytes — ia, ja, al (au unless symmetric) and ad read
 // once, X read and Y written once: about 245 MB at the cube's B = 8 (the
 // benchmark's count, without ia, is 239 MB: 0.071 ms at 3.35 TB/s) and
@@ -51,8 +75,9 @@
 //
 // Summation order: float32 throughout.  The reductions land in atomic
 // order, so Y can differ from run to run by rounding (exact on dyadic
-// values; ROADMAP C44), as the `index_add_` it replaces did.  A float
-// `red` add flushes subnormal inputs and results to zero (PTX ISA), as
+// values; ROADMAP C44), as the `index_add_` it replaces did; a heavy row's
+// gather term is a sum of its chunks' partial sums, in that order too.  A
+// float `red` add flushes subnormal inputs and results to zero (PTX ISA), as
 // `index_add_`'s atomics on the card do.
 #include <cuda_runtime.h>
 
@@ -102,14 +127,43 @@ __device__ __forceinline__ void red_add(float* p, const Cols<V>& c) {
   }
 }
 
-template <int V, bool SYM, bool TAIL>
-__global__ void __launch_bounds__(kThreads)
-segment_kernel(const int* __restrict__ ia, const int* __restrict__ ja,
-               const float* __restrict__ al, const float* __restrict__ au,
-               const float* __restrict__ ad, const int* __restrict__ iar,
-               const int* __restrict__ jar, const float* __restrict__ ar,
-               const float* __restrict__ x, float* y, int n, int m,
-               int nrhs, int lanes) {
+// One column group of row i over slots [p0, p1): al[p]·X[ja[p]] into the
+// owned sum `acc`, au[p]·X[i] into Y[ja[p]] by reduction.  The row-owned
+// kernels and the chunk kernel walk their slots with it.
+template <int V, bool SYM>
+__device__ __forceinline__ void walk_slots(
+    const int* __restrict__ ja, const float* __restrict__ al,
+    const float* __restrict__ au, const float* __restrict__ x, float* y,
+    int n, int nrhs, size_t col, const Cols<V>& xi, int p0, int p1,
+    Cols<V>& acc) {
+  for (int p = p0; p < p1; ++p) {
+    const int j = __ldg(ja + p);
+    if (static_cast<unsigned>(j) >= static_cast<unsigned>(n)) continue;
+    const float a = __ldg(al + p);
+    const float u = SYM ? a : __ldg(au + p);
+    const size_t at = static_cast<size_t>(j) * nrhs + col;
+    const Cols<V> xj = load_cols<V>(x + at);
+    Cols<V> t;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      acc.v[v] = fmaf(a, xj.v[v], acc.v[v]);
+      t.v[v] = u * xi.v[v];
+    }
+    red_add<V>(y + at, t);
+  }
+}
+
+// A lane group owns row i: its diagonal, its lower slots (SPLIT: none of
+// them where the row has more than `heavy`, whose chunks walk them) and its
+// rectangular tail.
+template <int V, bool SYM, bool TAIL, bool SPLIT>
+__device__ __forceinline__ void own_rows(
+    const int* __restrict__ ia, const int* __restrict__ ja,
+    const float* __restrict__ al, const float* __restrict__ au,
+    const float* __restrict__ ad, const int* __restrict__ iar,
+    const int* __restrict__ jar, const float* __restrict__ ar,
+    const float* __restrict__ x, float* y, int n, int m, int nrhs,
+    int lanes, int heavy) {
   const int rows_per_block = kThreads / lanes;
   const int r = threadIdx.x / lanes;
   if (r >= rows_per_block) return;
@@ -117,7 +171,9 @@ segment_kernel(const int* __restrict__ ia, const int* __restrict__ ja,
       static_cast<long long>(blockIdx.x) * rows_per_block + r;
   if (i >= n) return;
   const int groups = nrhs / V;
-  const int p0 = __ldg(ia + i), p1 = __ldg(ia + i + 1);
+  const int p0 = __ldg(ia + i);
+  int p1 = __ldg(ia + i + 1);
+  if (SPLIT && p1 - p0 > heavy) p1 = p0;
   const int q0 = TAIL ? __ldg(iar + i) : 0;
   const int q1 = TAIL ? __ldg(iar + i + 1) : 0;
   const unsigned tail_cols = static_cast<unsigned>(m - n);
@@ -129,21 +185,7 @@ segment_kernel(const int* __restrict__ ia, const int* __restrict__ ja,
     Cols<V> acc;
 #pragma unroll
     for (int v = 0; v < V; ++v) acc.v[v] = d * xi.v[v];
-    for (int p = p0; p < p1; ++p) {
-      const int j = __ldg(ja + p);
-      if (static_cast<unsigned>(j) >= static_cast<unsigned>(n)) continue;
-      const float a = __ldg(al + p);
-      const float u = SYM ? a : __ldg(au + p);
-      const size_t at = static_cast<size_t>(j) * nrhs + col;
-      const Cols<V> xj = load_cols<V>(x + at);
-      Cols<V> t;
-#pragma unroll
-      for (int v = 0; v < V; ++v) {
-        acc.v[v] = fmaf(a, xj.v[v], acc.v[v]);
-        t.v[v] = u * xi.v[v];
-      }
-      red_add<V>(y + at, t);
-    }
+    walk_slots<V, SYM>(ja, al, au, x, y, n, nrhs, col, xi, p0, p1, acc);
     if (TAIL) {
       for (int q = q0; q < q1; ++q) {
         const int c = __ldg(jar + q);
@@ -159,22 +201,149 @@ segment_kernel(const int* __restrict__ ia, const int* __restrict__ ja,
   }
 }
 
+// Every row owned whole: the product of a matrix without heavy rows.
+template <int V, bool SYM, bool TAIL>
+__global__ void __launch_bounds__(kThreads)
+segment_kernel(const int* __restrict__ ia, const int* __restrict__ ja,
+               const float* __restrict__ al, const float* __restrict__ au,
+               const float* __restrict__ ad, const int* __restrict__ iar,
+               const int* __restrict__ jar, const float* __restrict__ ar,
+               const float* __restrict__ x, float* y, int n, int m,
+               int nrhs, int lanes) {
+  own_rows<V, SYM, TAIL, false>(ia, ja, al, au, ad, iar, jar, ar, x, y, n,
+                                m, nrhs, lanes, 0);
+}
+
+// The row-owned launch beside the chunk kernel: a heavy row keeps only its
+// diagonal and tail here.
+template <int V, bool SYM, bool TAIL>
+__global__ void __launch_bounds__(kThreads)
+segment_light_kernel(const int* __restrict__ ia, const int* __restrict__ ja,
+                     const float* __restrict__ al,
+                     const float* __restrict__ au,
+                     const float* __restrict__ ad,
+                     const int* __restrict__ iar,
+                     const int* __restrict__ jar,
+                     const float* __restrict__ ar,
+                     const float* __restrict__ x, float* y, int n, int m,
+                     int nrhs, int lanes, int heavy) {
+  own_rows<V, SYM, TAIL, true>(ia, ja, al, au, ad, iar, jar, ar, x, y, n,
+                               m, nrhs, lanes, heavy);
+}
+
+// walk_slots over a chunk, kBatch slots at a time: their indices and
+// values, then their kBatch gathers of X, then the sums and reductions, so
+// that a lane has kBatch gathers in flight where walk_slots has one (each
+// reduction is a memory barrier to the compiler, so it cannot hoist the
+// next slot's gather above it).  The owned sum adds in slot order, as in
+// walk_slots; the last chunk % kBatch slots go through walk_slots.
+constexpr int kBatch = 8;
+
+template <int V, bool SYM>
+__device__ __forceinline__ void walk_chunk(
+    const int* __restrict__ ja, const float* __restrict__ al,
+    const float* __restrict__ au, const float* __restrict__ x, float* y,
+    int n, int nrhs, size_t col, const Cols<V>& xi, int p0, int p1,
+    Cols<V>& acc) {
+  int p = p0;
+  for (; p + kBatch <= p1; p += kBatch) {
+    int j[kBatch];
+    float a[kBatch], u[kBatch];
+    Cols<V> xj[kBatch];
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      j[b] = __ldg(ja + p + b);
+      a[b] = __ldg(al + p + b);
+      u[b] = SYM ? a[b] : __ldg(au + p + b);
+    }
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      if (static_cast<unsigned>(j[b]) < static_cast<unsigned>(n)) {
+        xj[b] = load_cols<V>(x + static_cast<size_t>(j[b]) * nrhs + col);
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      if (static_cast<unsigned>(j[b]) >= static_cast<unsigned>(n)) continue;
+      Cols<V> t;
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        acc.v[v] = fmaf(a[b], xj[b].v[v], acc.v[v]);
+        t.v[v] = u[b] * xi.v[v];
+      }
+      red_add<V>(y + static_cast<size_t>(j[b]) * nrhs + col, t);
+    }
+  }
+  walk_slots<V, SYM>(ja, al, au, x, y, n, nrhs, col, xi, p, p1, acc);
+}
+
+// A lane group takes one chunk (row, first slot, end slot) of a heavy row:
+// its slots' gather terms summed in registers and joined to Y[row] by one
+// reduction, their transpose terms into Y[ja[p]] as the row kernels do.
+template <int V, bool SYM>
+__global__ void __launch_bounds__(kThreads)
+segment_chunk_kernel(const int* __restrict__ chunks, int n_chunks,
+                     const int* __restrict__ ja,
+                     const float* __restrict__ al,
+                     const float* __restrict__ au,
+                     const float* __restrict__ x, float* y, int n, int nrhs,
+                     int lanes) {
+  const int per_block = kThreads / lanes;
+  const int r = threadIdx.x / lanes;
+  if (r >= per_block) return;
+  const long long c = static_cast<long long>(blockIdx.x) * per_block + r;
+  if (c >= n_chunks) return;
+  const int i = __ldg(chunks + 3 * c);
+  const int p0 = __ldg(chunks + 3 * c + 1), p1 = __ldg(chunks + 3 * c + 2);
+  const int groups = nrhs / V;
+  const size_t row = static_cast<size_t>(i) * nrhs;
+  for (int g = threadIdx.x - r * lanes; g < groups; g += lanes) {
+    const size_t col = static_cast<size_t>(g) * V;
+    const Cols<V> xi = load_cols<V>(x + row + col);
+    Cols<V> acc;
+#pragma unroll
+    for (int v = 0; v < V; ++v) acc.v[v] = 0.0f;
+    walk_chunk<V, SYM>(ja, al, au, x, y, n, nrhs, col, xi, p0, p1, acc);
+    red_add<V>(y + row + col, acc);
+  }
+}
+
+unsigned blocks_for(long long items, int lanes) {
+  const int per_block = kThreads / lanes;
+  return static_cast<unsigned>((items + per_block - 1) / per_block);
+}
+
 template <int V, bool SYM, bool TAIL>
 cudaError_t launch(const void* ia, const void* ja, const void* al,
                    const void* au, const void* ad, const void* iar,
                    const void* jar, const void* ar, const void* x, void* y,
-                   int n, int m, int nrhs, int lanes, cudaStream_t stream) {
-  const int rows_per_block = kThreads / lanes;
-  const long long blocks =
-      (static_cast<long long>(n) + rows_per_block - 1) / rows_per_block;
-  segment_kernel<V, SYM, TAIL><<<static_cast<unsigned>(blocks), kThreads, 0,
-                                 stream>>>(
-      static_cast<const int*>(ia), static_cast<const int*>(ja),
-      static_cast<const float*>(al), static_cast<const float*>(au),
-      static_cast<const float*>(ad), static_cast<const int*>(iar),
-      static_cast<const int*>(jar), static_cast<const float*>(ar),
-      static_cast<const float*>(x), static_cast<float*>(y), n, m, nrhs,
-      lanes);
+                   int n, int m, int nrhs, int lanes, const void* chunks,
+                   int n_chunks, int heavy, cudaStream_t stream) {
+  const auto* ia_ = static_cast<const int*>(ia);
+  const auto* ja_ = static_cast<const int*>(ja);
+  const auto* al_ = static_cast<const float*>(al);
+  const auto* au_ = static_cast<const float*>(au);
+  const auto* ad_ = static_cast<const float*>(ad);
+  const auto* iar_ = static_cast<const int*>(iar);
+  const auto* jar_ = static_cast<const int*>(jar);
+  const auto* ar_ = static_cast<const float*>(ar);
+  const auto* x_ = static_cast<const float*>(x);
+  auto* y_ = static_cast<float*>(y);
+  const unsigned rows = blocks_for(n, lanes);
+  if (n_chunks == 0) {
+    segment_kernel<V, SYM, TAIL><<<rows, kThreads, 0, stream>>>(
+        ia_, ja_, al_, au_, ad_, iar_, jar_, ar_, x_, y_, n, m, nrhs, lanes);
+    return cudaGetLastError();
+  }
+  segment_light_kernel<V, SYM, TAIL><<<rows, kThreads, 0, stream>>>(
+      ia_, ja_, al_, au_, ad_, iar_, jar_, ar_, x_, y_, n, m, nrhs, lanes,
+      heavy);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  segment_chunk_kernel<V, SYM>
+      <<<blocks_for(n_chunks, lanes), kThreads, 0, stream>>>(
+          static_cast<const int*>(chunks), n_chunks, ja_, al_, au_, x_, y_,
+          n, nrhs, lanes);
   return cudaGetLastError();
 }
 
@@ -183,10 +352,11 @@ cudaError_t dispatch(bool sym, bool tail, const void* ia, const void* ja,
                      const void* al, const void* au, const void* ad,
                      const void* iar, const void* jar, const void* ar,
                      const void* x, void* y, int n, int m, int nrhs,
-                     int lanes, cudaStream_t stream) {
+                     int lanes, const void* chunks, int n_chunks, int heavy,
+                     cudaStream_t stream) {
 #define K15_LAUNCH(S, T) \
   return launch<V, S, T>(ia, ja, al, au, ad, iar, jar, ar, x, y, n, m, nrhs, \
-                         lanes, stream)
+                         lanes, chunks, n_chunks, heavy, stream)
   if (sym) {
     if (tail) K15_LAUNCH(true, true);
     K15_LAUNCH(true, false);
@@ -201,8 +371,11 @@ cudaError_t dispatch(bool sym, bool tail, const void* ia, const void* ja,
 // Y (n, nrhs) = A·X for X (m, nrhs), both row-major float32; ia / iar
 // (n + 1) and ja (k) / jar (kr) int32, al / au (k), ad (n), ar (kr) float32.
 // `vec` (1, 2 or 4) columns a lane's group, dividing nrhs, with X and Y
-// aligned to 4·vec bytes; `lanes` (1-32) threads a row.  Zeroes Y on the
-// stream, then launches the kernel once.
+// aligned to 4·vec bytes; `lanes` (1-32) threads a row.  `chunks` holds
+// `n_chunks` int32 triples (row, first slot, end slot) that cover the lower
+// slots of every row with more than `heavy` of them, and no other slot.
+// Zeroes Y on the stream, then launches segment_kernel once where
+// n_chunks is 0, else segment_light_kernel and segment_chunk_kernel.
 extern "C" int csrc_segment_spmm(const void* ia, const void* ja,
                                  const void* al, const void* au,
                                  const void* ad, const void* iar,
@@ -210,9 +383,11 @@ extern "C" int csrc_segment_spmm(const void* ia, const void* ja,
                                  const void* x, void* y, int n, int m,
                                  int nrhs, int vec, int lanes,
                                  int num_symmetric, int has_tail,
+                                 const void* chunks, int n_chunks, int heavy,
                                  void* stream) {
   if (n < 0 || m < n || nrhs < 1 || lanes < 1 || lanes > 32 ||
-      (vec != 1 && vec != 2 && vec != 4) || nrhs % vec != 0) {
+      (vec != 1 && vec != 2 && vec != 4) || nrhs % vec != 0 ||
+      n_chunks < 0 || heavy < 0 || (n_chunks > 0 && chunks == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n == 0) return static_cast<int>(cudaSuccess);
@@ -223,13 +398,13 @@ extern "C" int csrc_segment_spmm(const void* ia, const void* ja,
   const bool sym = num_symmetric != 0, tail = has_tail != 0;
   if (vec == 4) {
     err = dispatch<4>(sym, tail, ia, ja, al, au, ad, iar, jar, ar, x, y, n,
-                      m, nrhs, lanes, st);
+                      m, nrhs, lanes, chunks, n_chunks, heavy, st);
   } else if (vec == 2) {
     err = dispatch<2>(sym, tail, ia, ja, al, au, ad, iar, jar, ar, x, y, n,
-                      m, nrhs, lanes, st);
+                      m, nrhs, lanes, chunks, n_chunks, heavy, st);
   } else {
     err = dispatch<1>(sym, tail, ia, ja, al, au, ad, iar, jar, ar, x, y, n,
-                      m, nrhs, lanes, st);
+                      m, nrhs, lanes, chunks, n_chunks, heavy, st);
   }
   return static_cast<int>(err);
 }

@@ -111,14 +111,16 @@ class Kernel:
             build([self])
         return self._fn
 
-    def launch(self, *args) -> None:
-        """Launch on the current stream; raise if the launch was refused."""
+    def launch(self, *args, launches: int = 1) -> None:
+        """Launch on the current stream; raise if the launch was refused.
+        ``launches`` is how many kernels the entry point starts for these
+        arguments."""
         fn = self.function()
         err = fn(*args, torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(
                 f"CUDA kernel {self.name} failed to launch: cudaError {err}")
-        self.launches += 1
+        self.launches += launches
 
 
 def build(kernels: Optional[Sequence[Kernel]] = None,

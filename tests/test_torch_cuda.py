@@ -26,6 +26,7 @@ from repro_torch.kernels import csrc_spmv_nnzsplit as nz
 from repro_torch.kernels.ops import SpmvOperator
 
 from _smoke import chip_smoke
+from _split_cases import SPLIT_CASES, split_case
 
 pytestmark = pytest.mark.cuda
 
@@ -885,15 +886,20 @@ def _abs_matrix(M):
 def test_k15_equals_plain_chain_on_dyadic_data(card, case, symmetric):
     """K15 against the gather + index_add_ chain on the card, equal on
     dyadic values at every width (vec 4 / 2 / 1, one to 32 lanes, a lane
-    looping over column groups at B = 136); one launch a product."""
+    looping over column groups at B = 136); one launch a product, two
+    where rows pass HEAVY_SLOTS (the random pattern's longest rows)."""
     M = _segment_matrix(case, dyadic=True, symmetric=symmetric).to(card)
     assert M.numerically_symmetric == symmetric
+    k = seg.SegmentKernel(M)
+    launches = 1 + (k.split.chunks.shape[0] > 0)
+    assert launches == 1 + (case == "random_empty_rows")
     rng = np.random.default_rng(51)
     for width in SEGMENT_WIDTHS:
         x = _dyadic_x(rng, M.m, width, card)
         before = _build.launch_counts()["csrc_segment_spmm"]
-        got = seg.SegmentKernel(M)(x)
-        assert _build.launch_counts()["csrc_segment_spmm"] == before + 1
+        got = k(x)
+        assert _build.launch_counts()["csrc_segment_spmm"] == (
+            before + launches)
         want = seg.segment_product_plain(M, x)
         assert got.shape == want.shape == (M.n,) + tuple(x.shape[1:])
         np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy(),
@@ -974,3 +980,129 @@ def test_segment_operator_on_the_card_routes_to_k15(card):
         SpmvOperator(M64, path="segment")
     assert routed.value == r0 + 1 and plain.value == p0
     assert _build.launch_counts()["csrc_segment_spmm"] == before
+
+
+SPLIT_WIDTHS = (1, 2, 8, 32)
+
+
+def _k15_launches():
+    return _build.launch_counts()["csrc_segment_spmm"]
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES)
+@pytest.mark.parametrize("symmetric", [False, True])
+def test_k15_split_equals_plain_chain_on_dyadic_data(card, case,
+                                                      symmetric):
+    """Rows with more than HEAVY_SLOTS lower slots are cut into chunks:
+    each product is two launches (the row-owned kernel, which leaves a
+    heavy row its diagonal and tail, and the chunk kernel), equal to the
+    gather + index_add_ chain on dyadic values at B = 1, 2, 8 and 32 (one
+    row holding every slot, rows just under and just over the threshold, a
+    Kronecker graph, al != au, a rectangular tail)."""
+    M = split_case(case, symmetric=symmetric).to(card)
+    k = seg.SegmentKernel(M)
+    assert k.split.chunks.shape[0] > 0 and k.split.rows > 0
+    rng = np.random.default_rng(61)
+    for width in SPLIT_WIDTHS:
+        x = _dyadic_x(rng, M.m, width, card)
+        before = _k15_launches()
+        got = k(x)
+        assert _k15_launches() == before + 2
+        want = seg.segment_product_plain(M, x)
+        np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy(),
+                                      err_msg=f"{case} B={width}")
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES)
+def test_k15_split_within_rowsum_tolerance_on_general_values(card, case):
+    """Standard-normal values, al != au: a heavy row's sum is its chunks'
+    partial sums joined in atomic order, so each row is held within 1e-5
+    of its absolute sum, as K15's rows without the split are."""
+    M = split_case(case, dyadic=False, symmetric=False).to(card)
+    Ma = _abs_matrix(M)
+    k = seg.SegmentKernel(M)
+    rng = np.random.default_rng(62)
+    for width in SPLIT_WIDTHS:
+        x = torch.from_numpy(rng.standard_normal(
+            (M.m, width), dtype=np.float32)).to(card)
+        if width == 1:
+            x = x[:, 0].contiguous()
+        got = k(x)
+        want = seg.segment_product_plain(M, x)
+        bound = 1e-5 * seg.segment_product_plain(Ma, x.abs()) + 1e-30
+        assert bool(((got - want).abs() <= bound).all()), (case, width)
+
+
+@pytest.mark.parametrize("heavy,chunk", [(0, 1), (5, 3), (13, 1000)])
+def test_k15_split_at_any_threshold_and_chunk(card, heavy, chunk):
+    """Every row split into one-slot chunks, short chunks, one chunk a
+    row: the same product, at every lane mapping (B = 3 and 11: one column
+    a lane; 136: a lane looping over column groups)."""
+    M = split_case("kronecker", symmetric=False).to(card)
+    k = seg.SegmentKernel(M, seg.split_rows(M.ia, heavy, chunk))
+    assert k.split.chunks.shape[0] > 0 and k.split.heavy == heavy
+    rng = np.random.default_rng(63)
+    for width in (1, 3, 8, 11, 136):
+        x = _dyadic_x(rng, M.m, width, card)
+        assert torch.equal(k(x), seg.segment_product_plain(M, x)), width
+
+
+def test_k15_without_heavy_rows_keeps_one_launch(card):
+    """HPCG's stencil has no row over the threshold: an empty chunk table
+    and one launch a product, as before the split."""
+    M = _segment_matrix("wide_stencil", dyadic=True, symmetric=True)
+    k = seg.SegmentKernel(M.to(card))
+    assert tuple(k.split.chunks.shape) == (0, 3) and k.split.rows == 0
+    x = _dyadic_x(np.random.default_rng(64), M.m, 8, card)
+    before = _k15_launches()
+    k(x)
+    assert _k15_launches() == before + 1
+
+
+def test_segment_operator_splits_once_and_counts(card, tmp_path):
+    """A bound ``segment`` operator splits its matrix once, in its
+    schedule: its SpMV and SpMM executors take the one split, one
+    ``schedule.segment_split`` span carries the heavy rows, their slots
+    and the chunks, and ``segment_split_rows_total`` /
+    ``segment_split_chunks_total`` rise by them once.  A second operator
+    on the same PlanCache takes the stored split: no span, the same table,
+    the counters rise again (one bound operator more)."""
+    from repro_torch import obs
+    from repro_torch.core.tuner import PlanCache
+    M = split_case("kronecker")
+    rows = obs.counter("segment_split_rows_total")
+    chunks = obs.counter("segment_split_chunks_total")
+    r0, c0 = rows.value, chunks.value
+    path = str(tmp_path / "plans.json")
+    obs.clear_trace()
+    op = SpmvOperator(M, path="segment", cache=PlanCache(path))
+    split = op._fn.split
+    assert op._fn_mm.split is split and split.chunks.is_cuda
+    spans = obs.trace("schedule.segment_split")
+    assert len(spans) == 1
+    assert spans[0]["labels"] == {"rows": str(split.rows),
+                                  "slots": str(split.slots),
+                                  "chunks": str(split.chunks.shape[0])}
+    assert rows.value == r0 + split.rows > r0
+    assert chunks.value == c0 + split.chunks.shape[0]
+    X = _dyadic_x(np.random.default_rng(65), M.n, 8, card)
+    assert torch.equal(op(X), seg.segment_product_plain(M.to(card), X))
+    obs.clear_trace()
+    again = SpmvOperator(M, path="segment", cache=PlanCache(path))
+    assert obs.trace("schedule.segment_split") == []
+    assert torch.equal(again._fn.split.chunks, split.chunks)
+    assert rows.value == r0 + 2 * split.rows
+    assert torch.equal(again(X), op(X))
+
+
+def test_k15_refuses_a_chunk_table_it_cannot_read(card):
+    """A split whose table is not contiguous int32 (chunks, 3) is refused
+    when the kernel binds, before any launch."""
+    import dataclasses
+    M = split_case("kronecker").to(card)
+    split = seg.split_rows(M.ia)
+    before = _k15_launches()
+    for chunks in (split.chunks.long(), split.chunks.t()):
+        with pytest.raises(ValueError, match="int32"):
+            seg.SegmentKernel(M, dataclasses.replace(split, chunks=chunks))
+    assert _k15_launches() == before

@@ -86,7 +86,7 @@ def main() -> int:
         nrhs = 1 if x.ndim == 1 else x.shape[1]
         y = torch.empty((n,) + tuple(x.shape[1:]), device="cuda")
         kernels[name].launch(*bound._arrays, x.data_ptr(), y.data_ptr(), n,
-                             n, nrhs, vec, lanes, *bound._flags)
+                             n, nrhs, vec, lanes, *bound._last_args)
         return y
 
     def event_ms(fn, reps=20):
@@ -123,7 +123,7 @@ def main() -> int:
                             for (k, v, lanes), t in times.items()}
     x = torch.from_numpy(cs.dyadic_vector(rng, (n,))).cuda()
     head = (*bound._arrays, x.data_ptr())
-    tail = (n, n, 1, 1, 1, *bound._flags)
+    tail = (n, n, 1, 1, 1, *bound._last_args)
 
     def bare():
         y = torch.empty(n, device="cuda")
